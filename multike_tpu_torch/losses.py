@@ -1,0 +1,154 @@
+"""Loss functions (counterpart of multike_tpu/losses.py).
+
+All losses are sums over the batch like the reference; each takes an optional
+``mask`` (1.0 real row / 0.0 padded row) so fixed-shape batches with tail
+padding give the reference's variable-size batch sums. ``log(1 + exp(x))``
+is ``softplus(x)``.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from multike_tpu_torch.params import l2_normalize
+
+
+def _sq_norm(x):
+    return torch.sum(torch.square(x), dim=-1)
+
+
+def transe_score(h, r, t):
+    """-||h + r - t||^2"""
+    return -_sq_norm(h + r - t)
+
+
+def relation_logistic_loss(phs, prs, pts, nhs, nrs, nts,
+                           pos_mask=None, neg_mask=None):
+    """sum softplus(-pos_score) + sum softplus(neg_score)."""
+    pos = F.softplus(-transe_score(phs, prs, pts))
+    neg = F.softplus(transe_score(nhs, nrs, nts))
+    if pos_mask is not None:
+        pos = pos * pos_mask
+    if neg_mask is not None:
+        neg = neg * neg_mask
+    return torch.sum(pos) + torch.sum(neg)
+
+
+def relation_logistic_loss_wo_negs(phs, prs, pts, mask=None):
+    pos = F.softplus(-transe_score(phs, prs, pts))
+    if mask is not None:
+        pos = pos * mask
+    return torch.sum(pos)
+
+
+def logistic_loss_wo_negs(phs, pas, pvs, pws, mask=None):
+    """Weighted positives-only logistic loss."""
+    pos = F.softplus(-transe_score(phs, pas, pvs)) * pws
+    if mask is not None:
+        pos = pos * mask
+    return torch.sum(pos)
+
+
+def positive_logistic_from_scores(scores, weights=None, mask=None):
+    """sum w * softplus(-score), used with the conv scorer."""
+    pos = F.softplus(-scores)
+    if weights is not None:
+        pos = pos * weights
+    if mask is not None:
+        pos = pos * mask
+    return torch.sum(pos)
+
+
+def lean_relation_logistic_loss(phs, prs, pts, cand_rows, corrupt_head,
+                                pos_mask=None, neg_keep=None):
+    """TransE logistic loss with per-slot negatives in the lean layout:
+    negatives reuse the positive rows for the uncorrupted side.
+    ``phs/prs/pts`` (B, D) normalized rows; ``cand_rows`` (B, K, D)
+    normalized candidate rows; ``corrupt_head`` (B, K) bool; ``neg_keep``
+    (B, K) optional 0/1 slot mask.
+
+    The negative score is expanded so the only (B, K, D) work is three
+    multiply-reduces over ``cand_rows``:
+      corrupt head:  -||c + r - t||^2 = -(|c|^2 + |r - t|^2 + 2 c.(r - t))
+      corrupt tail:  -||h + r - c||^2 = -(|h + r|^2 + |c|^2 - 2 (h + r).c)"""
+    pos = F.softplus(-transe_score(phs, prs, pts))
+    rt = prs - pts
+    hr = phs + prs
+    c_sq = _sq_norm(cand_rows)                                      # (B, K)
+    c_rt = torch.einsum("bkd,bd->bk", cand_rows, rt)
+    c_hr = torch.einsum("bkd,bd->bk", cand_rows, hr)
+    ns_h = -(c_sq + _sq_norm(rt)[:, None] + 2.0 * c_rt)
+    ns_t = -(_sq_norm(hr)[:, None] + c_sq - 2.0 * c_hr)
+    neg = F.softplus(torch.where(corrupt_head, ns_h, ns_t))
+    if neg_keep is not None:
+        neg = neg * neg_keep
+    if pos_mask is not None:
+        pos = pos * pos_mask
+        neg = neg * pos_mask[:, None]
+    return torch.sum(pos) + torch.sum(neg)
+
+
+def chunk_shared_relation_logistic_loss(phs, prs, pts, cand_h, cand_t,
+                                        neg_weight=1.0, pos_mask=None,
+                                        keep_h=None, keep_t=None):
+    """TransE logistic loss with chunk-shared negatives.
+
+    ``phs/prs/pts`` (NC, S, D) normalized positive rows, chunked;
+    ``cand_h/cand_t`` (NC, C, D) normalized shared head- and tail-corruption
+    candidate rows. Every positive scores against all C candidates of each
+    pool, each pair weighted ``neg_weight`` (K / (2C) reproduces the
+    reference's K per-slot draws in expectation).
+
+    The cross terms of -||h' + r - t'||^2 are float32 batched matmuls
+    (TF32 is off, see the package docstring):
+      corrupt head:  -(|c|^2 + |r - t|^2 + 2 c.(r - t))
+      corrupt tail:  -(|h + r|^2 + |c|^2 - 2 (h + r).c)
+    ``keep_h``/``keep_t`` (NC, S, C), optional: 0 drops a pair."""
+    pos = F.softplus(-transe_score(phs, prs, pts))                 # (NC, S)
+    rt = prs - pts
+    ns_h = -(_sq_norm(cand_h)[:, None, :] + _sq_norm(rt)[..., None]
+             + 2.0 * torch.bmm(rt, cand_h.transpose(1, 2)))
+    hr = phs + prs
+    ns_t = -(_sq_norm(hr)[..., None] + _sq_norm(cand_t)[:, None, :]
+             - 2.0 * torch.bmm(hr, cand_t.transpose(1, 2)))
+    neg_h = F.softplus(ns_h)                                        # (NC, S, C)
+    neg_t = F.softplus(ns_t)
+    if keep_h is not None:
+        neg_h = neg_h * keep_h
+    if keep_t is not None:
+        neg_t = neg_t * keep_t
+    neg = (neg_h + neg_t) * neg_weight
+    if pos_mask is not None:
+        pos = pos * pos_mask
+        neg = neg * pos_mask[..., None]
+    return torch.sum(pos) + torch.sum(neg)
+
+
+def alignment_loss(ents1, ents2, mask=None):
+    """sum ||e1 - e2||^2"""
+    d = _sq_norm(ents1 - ents2)
+    if mask is not None:
+        d = d * mask
+    return torch.sum(d)
+
+
+def orthogonal_loss(mapping, eye):
+    """sum (M M^T - I)^2"""
+    return torch.sum(torch.square(mapping @ mapping.T - eye))
+
+
+def space_mapping_loss(view_embeds, shared_embeds, mapping, eye,
+                       orthogonal_weight, norm_w=0.0001, mask=None):
+    """The mapped view embeddings are normalized by the l2 norm of the WHOLE
+    batch tensor (the reference's axis-less tf.nn.l2_normalize)."""
+    mapped = view_embeds @ mapping
+    if mask is not None:
+        mapped = mapped * mask[:, None]  # keep padded rows out of the norm
+    mapped = l2_normalize(mapped, axis=None)
+    d = _sq_norm(shared_embeds - mapped)
+    if mask is not None:
+        d = d * mask
+    map_loss = torch.sum(d)
+    norm_loss = torch.sum(torch.square(mapping))
+    return map_loss + orthogonal_weight * orthogonal_loss(mapping, eye) + \
+        norm_w * norm_loss

@@ -1,0 +1,132 @@
+"""Model parameters: embedding tables, view->shared mappings, conv scorers
+(counterpart of multike_tpu/params.py).
+
+The parameters are a plain dict of float32 tensors, in the JAX package's
+names and layouts (conv weights as (kh, kw, in, out)), so the tests can copy
+a reference parameter dict across with :func:`params_from_reference`.
+
+Tables are stored raw; every read of ``rv_ent``, ``rel``, ``av_ent`` and
+``ent`` is l2-normalized row-wise after the gather (row-wise l2 commutes with
+the row gather, gradients included).
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from multike_tpu_torch.config import Config
+from multike_tpu_torch.utils.device import resolve_device
+
+EPS_L2 = 1e-12  # tf.nn.l2_normalize epsilon
+
+
+def l2_normalize(x: torch.Tensor, axis=None) -> torch.Tensor:
+    """tf.nn.l2_normalize semantics: ``x * rsqrt(max(sum(x^2), eps))``.
+
+    ``axis=None`` normalizes over the whole tensor. This is not
+    ``F.normalize``, which divides by ``max(norm, eps)``."""
+    if axis is None:
+        sq = torch.sum(torch.square(x))
+    else:
+        sq = torch.sum(torch.square(x), dim=axis, keepdim=True)
+    return x * torch.rsqrt(torch.clamp_min(sq, EPS_L2))
+
+
+def _xavier_normal(gen, shape, device):
+    """tf.contrib.layers.xavier_initializer(uniform=False): normal truncated
+    at 2 standard deviations, stddev = sqrt(2 / (fan_in + fan_out))."""
+    fan_in, fan_out = shape[0], shape[1]
+    std = float(np.sqrt(2.0 / (fan_in + fan_out)))
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return t * std
+
+
+def _glorot_uniform(gen, shape, fan_in, fan_out, device):
+    limit = float(np.sqrt(6.0 / (fan_in + fan_out)))
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    return t.uniform_(-limit, limit, generator=gen)
+
+
+def _orthogonal(gen, d, device):
+    t = torch.empty((d, d), dtype=torch.float32, device=device)
+    return torch.nn.init.orthogonal_(t, generator=gen)
+
+
+def init_conv_params(gen, dim: int, device, feature_map_size: int = 2,
+                     kernel=(2, 4), layer_num: int = 2) -> Dict[str, torch.Tensor]:
+    """One conv-scorer parameter set, in the JAX package's layout."""
+    kh, kw = kernel
+    p: Dict[str, torch.Tensor] = {
+        "bn_gamma": torch.ones((dim,), dtype=torch.float32, device=device),
+        "bn_beta": torch.zeros((dim,), dtype=torch.float32, device=device),
+    }
+    in_ch = 1
+    for i in range(layer_num):
+        rf = kh * kw
+        p[f"conv{i}_w"] = _glorot_uniform(gen, (kh, kw, in_ch, feature_map_size),
+                                          rf * in_ch, rf * feature_map_size,
+                                          device)
+        p[f"conv{i}_b"] = torch.zeros((feature_map_size,), dtype=torch.float32,
+                                      device=device)
+        in_ch = feature_map_size
+    flat = 2 * dim * feature_map_size
+    p["dense_w"] = _glorot_uniform(gen, (flat, dim), flat, dim, device)
+    p["dense_b"] = torch.zeros((dim,), dtype=torch.float32, device=device)
+    return p
+
+
+def init_params(cfg: Config, entities_num: int, relations_num: int,
+                attributes_num: int, seed: int | None = None,
+                device=None) -> Dict:
+    """The reference's variables with the same distributions as the JAX
+    package (not the same numbers: the random streams differ)."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(cfg.seed if seed is None else seed)
+    d = cfg.dim
+    return {
+        "rv_ent": _xavier_normal(gen, (entities_num, d), device),
+        "rel": _xavier_normal(gen, (relations_num, d), device),
+        "av_ent": _xavier_normal(gen, (entities_num, d), device),
+        "attr": _xavier_normal(gen, (attributes_num, d), device),
+        "ent": _xavier_normal(gen, (entities_num, d), device),
+        "nv_mapping": _orthogonal(gen, d, device),
+        "rv_mapping": _orthogonal(gen, d, device),
+        "av_mapping": _orthogonal(gen, d, device),
+        "conv_av": init_conv_params(gen, d, device),
+        "conv_ckge": init_conv_params(gen, d, device),
+        "conv_ckga": init_conv_params(gen, d, device),
+    }
+
+
+def _tree_to_tensors(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to_tensors(v, device) for k, v in tree.items()}
+    return torch.tensor(np.asarray(tree, np.float32), device=device)
+
+
+def params_from_reference(np_params: Dict, device=None) -> Dict:
+    """The JAX package's parameter dict (numpy arrays, nested conv dicts,
+    the same layouts) as this package's tensors."""
+    return _tree_to_tensors(np_params, resolve_device(device))
+
+
+def opt_states_from_reference(np_states: Dict, device=None) -> Dict:
+    """Adagrad accumulator dicts ({stream: {var: acc}}) of the JAX package
+    as tensors."""
+    return _tree_to_tensors(np_states, resolve_device(device))
+
+
+def lookup_norm(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Gather rows then l2-normalize each row (normalize-on-read)."""
+    return l2_normalize(table[idx], axis=-1)
+
+
+def lookup_norm_fast(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The JAX package picks a one-hot matmul gather for small tables, a TPU
+    scatter workaround; its forward value is the plain row gather, so here
+    it is :func:`lookup_norm`."""
+    return lookup_norm(table, idx)

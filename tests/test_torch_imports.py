@@ -1,0 +1,63 @@
+"""The PyTorch port stands alone: importing it and every submodule loads
+neither JAX nor the JAX package, and no file of the port (nor
+``chip_smoke.py``) imports them."""
+import os
+import re
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "multike_tpu_torch")
+FORBIDDEN = re.compile(
+    r"^\s*(?:import|from)\s+(?:jax|jaxlib|multike_tpu)(?:[.\s,]|$)"
+    r"|import_module\(\s*['\"](?:jax|jaxlib|multike_tpu)(?:[.'\"])",
+    re.MULTILINE)
+
+_PROBE = """
+import importlib, pkgutil, sys
+import multike_tpu_torch as m
+names = [i.name for i in pkgutil.walk_packages(m.__path__, m.__name__ + '.')]
+for n in names:
+    importlib.import_module(n)
+bad = sorted(k for k in sys.modules
+             if k.split('.')[0] in ('jax', 'jaxlib', 'multike_tpu'))
+print(len(names), bad)
+"""
+
+
+def test_import_loads_no_jax():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    count, bad = out.stdout.strip().split(" ", 1)
+    assert int(count) >= 20          # every submodule was imported
+    assert bad == "[]", bad
+
+
+def _sources():
+    for root, _, names in os.walk(PKG):
+        for n in names:
+            if n.endswith((".py", ".cu", ".cuh", ".h")):
+                yield os.path.join(root, n)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def test_no_source_imports_jax_or_the_jax_package():
+    files = list(_sources())
+    assert os.path.exists(files[-1])
+    for path in files:
+        with open(path) as f:
+            text = f.read()
+        m = FORBIDDEN.search(text)
+        assert m is None, f"{os.path.relpath(path, REPO)}: {m.group(0)!r}"
+
+
+def test_forbidden_pattern_catches_imports():
+    assert FORBIDDEN.search("import jax.numpy as jnp")
+    assert FORBIDDEN.search("    from multike_tpu.params import x")
+    assert FORBIDDEN.search("import multike_tpu")
+    assert FORBIDDEN.search("importlib.import_module('jax')")
+    assert not FORBIDDEN.search("from multike_tpu_torch.params import x")
+    assert not FORBIDDEN.search("import jaxtyping_like_name_elsewhere")
