@@ -2,15 +2,21 @@
 """Smoke run of the PyTorch port (``multike_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --k2-of DIR   # phases 1 and 3 only, for the
+                                        # package under DIR (for example an
+                                        # earlier commit, from git archive)
 
 Phases, each of which must pass or the script exits non-zero:
 
-  1. build the CUDA kernels from ``multike_tpu_torch/csrc`` (timed);
+  1. build the CUDA kernels from ``multike_tpu_torch/csrc`` (timed), and
+     report each one's registers and spills (a spill fails the run);
   2. K1, the fused row-sparse Adagrad apply, against its plain PyTorch
      version at the per-step shape of bench.py (200K x 75 table, the ids of
      one batch-80000 chunk_shared step);
   3. K2, the fused rank count, against its plain version at 35K x 70K,
-     d=75, and in CSLS form at a smaller size;
+     d=75, and at the main path's own 6K x 6K and 2K x 8K, then in CSLS
+     form; at each shape it is timed beside the plain version and
+     ``torch.matmul`` alone, with its bound and launch geometry;
   4. the main path: ``MultiKETrainer`` trains the relation view on the
      port's synthetic 20K-entity KG pair and ``views.valid_metrics`` ranks
      it; the rv valid MRR must rise and both kernels must have launched;
@@ -25,6 +31,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -90,6 +97,48 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def clocks_under_load(run, calls: int) -> dict:
+    """Runs ``run`` ``calls`` times back to back while nvidia-smi samples
+    the SM clock, its maximum and the power draw every 100 ms; returns the
+    medians of the samples taken inside the run."""
+    import datetime
+    import statistics
+
+    import torch
+
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=timestamp,clocks.sm,clocks.max.sm,"
+         "power.draw", "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        time.sleep(1.0)
+        run()
+        torch.cuda.synchronize()
+        start = datetime.datetime.now() + datetime.timedelta(seconds=0.2)
+        for _ in range(calls):
+            run()
+        torch.cuda.synchronize()
+        end = datetime.datetime.now()
+    finally:
+        smi.terminate()
+        out, _ = smi.communicate(timeout=30)
+    samples = []
+    for ln in out.splitlines():
+        f = [x.strip() for x in ln.split(",")]
+        try:
+            at = datetime.datetime.strptime(f[0], "%Y/%m/%d %H:%M:%S.%f")
+            sample = (float(f[1]), float(f[2]), float(f[3]))
+        except (ValueError, IndexError):
+            continue
+        if start <= at <= end:
+            samples.append(sample)
+    check(samples, "nvidia-smi took no sample during the run")
+    return dict(samples=len(samples),
+                sm_mhz=statistics.median(x[0] for x in samples),
+                max_sm_mhz=max(x[1] for x in samples),
+                power_w=statistics.median(x[2] for x in samples))
+
+
 def bench_triples(rng, n_triples, ent_lo, ent_hi, n_rel, rel_lo):
     """bench.py's random triples: uniform heads, relations and tails."""
     import numpy as np
@@ -105,19 +154,32 @@ def bench_triples(rng, n_triples, ent_lo, ent_hi, n_rel, rel_lo):
 # ---------------------------------------------------------------------------
 
 def phase_build():
+    """Build the kernels and report each one's registers and spills from
+    nvcc's ``-Xptxas -v`` log; a kernel that spills fails the run."""
     from multike_tpu_torch.kernels import _build
 
     t0 = time.time()
     path = _build.build()
     _build.load()
     secs = time.time() - t0
-    with open(path + ".log") as f:
-        report = [ln.strip() for ln in f
-                  if "registers" in ln or "spill" in ln or ln.startswith("==")]
     log(f"[build] kernels built and loaded in {secs:.2f} s: "
         f"{os.path.relpath(path, REPO)}")
-    for ln in report:
-        log(f"[build]   {ln}")
+    kernels, name = {}, None
+    with open(path + ".log") as f:
+        for ln in f:
+            if "Compiling entry function" in ln:
+                name = ln.split("'")[1]
+                kernels[name] = {}
+            elif name and (m := re.search(
+                    r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)):
+                kernels[name]["spill_bytes"] = int(m[1]) + int(m[2])
+            elif name and (m := re.search(r"Used (\d+) registers", ln)):
+                kernels[name]["registers"] = int(m[1])
+    check(kernels, "the nvcc log names no kernel")
+    for name, info in kernels.items():
+        log(f"[build]   {name[:72]}: {info.get('registers')} registers, "
+            f"{info.get('spill_bytes')} spill bytes")
+        check(info.get("spill_bytes") == 0, f"{name} spills to local memory")
 
 
 def phase_apply(dev, peaks, n_ent=100_000, batch=80_000, rel_triples=600_000,
@@ -227,54 +289,123 @@ def _rank_compare(e1, e2, gold, r2, got, want):
     return int(c_bad.numel()), int(i_bad.numel()), int(rows.numel())
 
 
-def phase_rank(dev, peaks, n1=35_000, n2=70_000, d=75, csls_n=(5_000, 10_000),
-               csls_k=10):
+# K2's shapes: DWY100K's test size, then the 20K main path's own test and
+# validation (data/synthetic.py's 6/1/3 split of 20,000 links: 6,000 x 6,000
+# and 2,000 x (2,000 + 6,000)), each with its timing repetitions.
+RANK_SHAPES = ((35_000, 70_000, 5), (6_000, 6_000, 20), (2_000, 8_000, 20))
+
+
+def _rank_twice(rk, *args):
+    """Two kernel calls, which must return bitwise-equal outputs."""
+    import torch
+
+    first = rk.rank_count(*args)
+    second = rk.rank_count(*args)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+              for a, b in zip(first, second)),
+          "K2 returned different outputs for the same inputs")
+    return first
+
+
+def _rank_shape(dev, peaks, n1, n2, d, reps, seed, clock_calls=0):
+    """K2 at one shape: tie-only mismatches against the plain version,
+    bitwise-equal repeats, and the times of the kernel, the plain version
+    and ``torch.matmul`` alone beside the bound. With ``clock_calls``, the
+    SM clock under a sustained run of the kernel, and the share of the
+    FFMA issue slots at that clock that the kernel's products fill."""
+    import torch
+
+    from multike_tpu_torch.kernels import rank_kernel as rk
+
+    e1, e2 = _rank_inputs(dev, n1, n2, d, seed)
+    gold = (e1 * e2[:n1]).sum(1)
+    gidx = torch.arange(n1, dtype=torch.int32, device=dev)
+    got = _rank_twice(rk, e1, gold, gidx, e2)
+    want = rk.rank_count_plain(e1, gold, gidx, e2)
+    torch.cuda.synchronize()
+    c_mis, i_mis, ties = _rank_compare(e1, e2, gold, None, got, want)
+    err = float((got[2] - want[2]).abs().max())
+
+    ms = time_ms(lambda: rk.rank_count(e1, gold, gidx, e2), reps)
+    plain_ms = time_ms(lambda: rk.rank_count_plain(e1, gold, gidx, e2),
+                       max(3, reps // 4))
+    library_ms = time_ms(lambda: torch.matmul(e1, e2.T), max(3, reps // 2))
+    flops = 2.0 * n1 * n2 * d
+    nbytes = (n1 + n2) * d * 4 + n1 * 8 + n1 * 12
+    mem_rate, fp32_rate = peaks
+    bound_ms = max(flops / fp32_rate, nbytes / mem_rate) * 1e3
+    # (an earlier version of the package, under --k2-of, may have no plan)
+    geo = rk.plan(n1, n2, d, device=dev) if hasattr(rk, "plan") else {}
+    if clock_calls:
+        clk = clocks_under_load(lambda: rk.rank_count(e1, gold, gidx, e2),
+                                clock_calls)
+        clk["ffma_slot_share"] = (flops / ms / 1e9) / (
+            fp32_rate / 1e12 * clk["sm_mhz"] / clk["max_sm_mhz"])
+        geo["clock"] = clk
+    log(f"[K2] {n1}x{n2} d={d}: kernel {ms:.4f} ms = "
+        f"{flops / ms / 1e9:.2f} TFLOP/s = {100 * bound_ms / ms:.1f}% of the "
+        f"bound {bound_ms:.4f} ms ({flops / 1e9:.2f} GFLOP at "
+        f"{fp32_rate / 1e12:.0f} TFLOP/s fp32); plain {plain_ms:.4f} ms; "
+        f"torch.matmul alone {library_ms:.4f} ms")
+    if "tiles" in geo:
+        log(f"[K2]   {geo['tiles']} tiles of 128x128 on {geo['ctas']} CTAs "
+            f"({geo['resident']} resident slots, {geo['waves']} wave, "
+            f"{geo['tiles_per_cta_min']}-{geo['tiles_per_cta_max']} tiles "
+            f"per CTA, {geo['smem']} B shared memory each)")
+    log(f"[K2]   count mismatches {c_mis}, "
+        f"argmax mismatches {i_mis}, all on {ties} rows within 1e-6 of a "
+        f"tie; best_val max_abs_err {err:.3e}; mean rank "
+        f"{float(got[0].float().mean()):.2f}")
+    if clock_calls:
+        log(f"[K2]   under {clock_calls} back-to-back calls: SM clock "
+            f"{clk['sm_mhz']:.0f} of {clk['max_sm_mhz']:.0f} MHz at "
+            f"{clk['power_w']:.1f} W ({clk['samples']} samples), so the "
+            f"products fill {100 * clk['ffma_slot_share']:.1f}% of the FFMA "
+            "issue slots at that clock")
+    return dict(n1=n1, n2=n2, d=d, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms,
+                bound_share=bound_ms / ms, tflops=flops / ms / 1e9,
+                max_abs_err=err, count_mismatches=c_mis,
+                argmax_mismatches=i_mis, tie_rows=ties, **geo)
+
+
+def phase_rank(dev, peaks, d=75, csls_n=(5_000, 10_000), csls_k=10):
+    """K2 at each of RANK_SHAPES, then in CSLS form."""
     import torch
 
     from multike_tpu_torch.eval.similarity import csls_penalties_blockwise
     from multike_tpu_torch.kernels import rank_kernel as rk
 
-    e1, e2 = _rank_inputs(dev, n1, n2, d, 0)
-    gold = (e1 * e2[:n1]).sum(1)
-    gidx = torch.arange(n1, dtype=torch.int32, device=dev)
-    got = rk.rank_count(e1, gold, gidx, e2)
-    want = rk.rank_count_plain(e1, gold, gidx, e2)
-    torch.cuda.synchronize()
-    c_mis, i_mis, ties = _rank_compare(e1, e2, gold, None, got, want)
-    err = float((got[2] - want[2]).abs().max())
-    log(f"[K2] {n1}x{n2} d={d}: count mismatches {c_mis}, argmax mismatches "
-        f"{i_mis}, all on {ties} rows within 1e-6 of a tie; best_val "
-        f"max_abs_err {err:.3e}; mean rank {float(got[0].float().mean()):.2f}")
+    shapes = [_rank_shape(dev, peaks, n1, n2, d, reps, seed,
+                          clock_calls=200 if seed == 0 else 0)
+              for seed, (n1, n2, reps) in enumerate(RANK_SHAPES)]
 
-    c1, c2 = _rank_inputs(dev, csls_n[0], csls_n[1], d, 1)
+    c1, c2 = _rank_inputs(dev, csls_n[0], csls_n[1], d, len(RANK_SHAPES))
     _, r2 = csls_penalties_blockwise(c1, c2, csls_k)
     cg = 2 * (c1 * c2[:csls_n[0]]).sum(1) - r2[:csls_n[0]]
     cidx = torch.arange(csls_n[0], dtype=torch.int32, device=dev)
-    cgot = rk.rank_count(c1, cg, cidx, c2, r2)
+    cgot = _rank_twice(rk, c1, cg, cidx, c2, r2)
     cwant = rk.rank_count_plain(c1, cg, cidx, c2, r2)
     torch.cuda.synchronize()
     cc, ci, ct = _rank_compare(c1, c2, cg, r2, cgot, cwant)
-    err = max(err, float((cgot[2] - cwant[2]).abs().max()))
+    cerr = float((cgot[2] - cwant[2]).abs().max())
     log(f"[K2] CSLS k={csls_k} {csls_n[0]}x{csls_n[1]}: count mismatches "
         f"{cc}, argmax mismatches {ci}, on {ct} tie rows")
 
-    ms = time_ms(lambda: rk.rank_count(e1, gold, gidx, e2), 5)
-    plain_ms = time_ms(lambda: rk.rank_count_plain(e1, gold, gidx, e2), 3)
-    library_ms = time_ms(lambda: torch.matmul(e1, e2.T), 3)
-    flops = 2.0 * n1 * n2 * d
-    nbytes = (n1 + n2) * d * 4 + n1 * 8 + n1 * 12
-    mem_rate, fp32_rate = peaks
-    bound_ms = max(flops / fp32_rate, nbytes / mem_rate) * 1e3
-    log(f"[K2] kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, torch.matmul "
-        f"alone {library_ms:.3f} ms, bound {bound_ms:.3f} ms "
-        f"({flops / 1e9:.1f} GFLOP at {fp32_rate / 1e12:.0f} TFLOP/s fp32)")
+    big = shapes[0]
     return dict(name="rank_count", route="cuda",
                 source="multike_tpu_torch/csrc/rank_kernel.cu",
                 replaces="multike_tpu/kernels/rank_kernel.py:112",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by="operations", library_ms=library_ms,
-                count_mismatches=c_mis + cc, argmax_mismatches=i_mis + ci,
-                tie_rows=ties + ct, shape=dict(n1=n1, n2=n2, d=d))
+                max_abs_err=max([cerr] + [x["max_abs_err"] for x in shapes]),
+                ms=big["ms"], plain_ms=big["plain_ms"],
+                bound_ms=big["bound_ms"], bound_by="operations",
+                library_ms=big["library_ms"],
+                count_mismatches=cc + sum(x["count_mismatches"] for x in shapes),
+                argmax_mismatches=ci + sum(x["argmax_mismatches"]
+                                           for x in shapes),
+                tie_rows=ct + sum(x["tie_rows"] for x in shapes),
+                shape=dict(n1=big["n1"], n2=big["n2"], d=d), shapes=shapes)
 
 
 class _Data:
@@ -473,11 +604,16 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script needs one GPU",
               file=sys.stderr)
         return 2
-    if not os.path.isdir(os.path.join(REPO, "multike_tpu_torch")):
-        print("chip_smoke: the multike_tpu_torch package is not beside this "
-              "script", file=sys.stderr)
+    args = sys.argv[1:]
+    if args and (len(args) != 2 or args[0] != "--k2-of"):
+        print("usage: chip_smoke.py [--k2-of DIR]", file=sys.stderr)
         return 2
-    sys.path.insert(0, REPO)
+    root = os.path.abspath(args[1]) if args else REPO
+    if not os.path.isdir(os.path.join(root, "multike_tpu_torch")):
+        print(f"chip_smoke: the multike_tpu_torch package is not in {root}",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, root)
     import multike_tpu_torch  # noqa: F401  (sets the fp32 matmul policy)
 
     t_start = time.time()
@@ -490,6 +626,12 @@ def main() -> int:
         f"TB/s, {peaks[1] / 1e12:.0f} TFLOP/s fp32")
 
     phase_build()
+    if args:
+        k2 = phase_rank(dev, peaks)
+        log(f"[done] K2 of {root} in {time.time() - t_start:.1f} s")
+        print(json.dumps({"kernels": [k2]}), flush=True)
+        print(card, flush=True)
+        return 0
     k1 = phase_apply(dev, peaks)
     k2 = phase_rank(dev, peaks)
     launches = phase_main_path(dev)

@@ -78,3 +78,74 @@ def test_rank_count_matches_plain(dev, csls):
     assert not ((bi != bi2) & ~tie).any()
     np.testing.assert_allclose(bv.cpu().numpy(), bv2.cpu().numpy(),
                                atol=1e-5)
+
+
+def _rank_twice(e1, gold, gidx, e2, r2):
+    """Two kernel calls: each adds exactly one launch, and the outputs are
+    bitwise equal (the cross-CTA merge does not depend on order)."""
+    n = rk.launches
+    first = rk.rank_count(e1, gold, gidx, e2, r2)
+    assert rk.launches == n + 1
+    second = rk.rank_count(e1, gold, gidx, e2, r2)
+    assert rk.launches == n + 2
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return first
+
+
+@pytest.mark.parametrize("csls", [False, True])
+@pytest.mark.parametrize("d", [1, 13, 75, rk.MAX_DIM])
+@pytest.mark.parametrize("n1,n2", [(50, 100), (300, 1000), (2000, 3000)])
+def test_rank_count_decomposition_exact(dev, n1, n2, d, csls):
+    """Row blocks and column tiles at every edge: n1 below one 128-row
+    block and not a multiple of it, n2 below one 128-column tile and not a
+    multiple of it, and (2000 x 3000: 384 tiles) more tiles than resident
+    CTAs, so CTA ranges cross row blocks and split rows between CTAs. The
+    entries are small integers, so every score is an exact integer in any
+    summation order: kernel and plain version must agree exactly, on the
+    many ties too. Half the rows get a gold below their gold column's own
+    score, which only the gold-column exclusion keeps out of the count;
+    row 0's maximum is duplicated in two column tiles."""
+    rng = np.random.RandomState(n1 + d + int(csls))
+    e1 = rng.randint(-3, 4, (n1, d)).astype(np.float32)
+    e2 = rng.randint(-3, 4, (n2, d)).astype(np.float32)
+    top = 3 * np.where(e1[0] >= 0, 1, -1).astype(np.float32)
+    dup = (min(5, n2 - 1), n2 - 3)                      # both hold row 0's max
+    e2[list(dup)] = top
+    gidx = rng.randint(0, n2, n1).astype(np.int32)
+    s = e1.astype(np.int64) @ e2.T.astype(np.int64)
+    r2 = rng.randint(-8, 9, n2).astype(np.float32) if csls else None
+    if csls:
+        r2[list(dup)] = -8                              # keeps them the max
+        s = 2 * s - r2.astype(np.int64)[None, :]
+    gold = (s[np.arange(n1), gidx] - (np.arange(n1) % 2)).astype(np.float32)
+    t = [torch.as_tensor(x, device=dev) for x in (e1, gold, gidx, e2)]
+    rt = None if r2 is None else torch.as_tensor(r2, device=dev)
+    c, bi, bv = _rank_twice(*t, rt)
+    c2, bi2, bv2 = rk.rank_count_plain(*t, rt)
+    assert torch.equal(c, c2)
+    assert torch.equal(bi, bi2)
+    assert torch.equal(bv, bv2)
+    assert int(bi[0]) <= dup[0] and float(bv[0]) == float(s[0].max())
+
+
+@pytest.mark.parametrize("csls", [False, True])
+def test_rank_count_signed_zero_max(dev, csls):
+    """A maximum of 0.0 from a column of -0.0 entries and from a later one
+    of +0.0 entries, in the same tile and in two tiles: the earlier column
+    wins, as in the plain version, because -0.0 and +0.0 are one value."""
+    n2, d = 300, 8
+    e1 = torch.eye(2, d, device=dev)
+    e2 = -torch.ones(n2, d, device=dev)                 # every score -1 ...
+    for row, (a, b) in enumerate([(5, 7), (6, 200)]):
+        e2[a, row] = -0.0                               # ... but -0.0 here
+        e2[b, row] = 0.0                                # ... and +0.0 here
+    gold = torch.full((2,), -2.0, device=dev)
+    gidx = torch.tensor([0, 1], dtype=torch.int32, device=dev)
+    r2 = torch.zeros(n2, device=dev) if csls else None
+    c, bi, bv = _rank_twice(e1, gold, gidx, e2, r2)
+    assert bi.tolist() == [5, 6]
+    assert bv.tolist() == [0.0, 0.0]
+    c2, bi2, _ = rk.rank_count_plain(e1, gold, gidx, e2, r2)
+    assert torch.equal(c, c2) and torch.equal(bi, bi2)

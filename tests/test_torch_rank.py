@@ -67,6 +67,82 @@ def test_rank_plain_matches_pallas_csls():
     np.testing.assert_array_equal(got[0].numpy(), want_cnt)
 
 
+def _exact_setup(seed, n1, n2, d):
+    """Small-integer entries: every score is an exact integer whatever the
+    summation order, so the two engines agree bit for bit, ties included.
+    Row 0's maximum is duplicated at columns 3 and n2 - 5. Row 1's maximum
+    is 0.0, at column 4 (all its products -0.0) and at column n2 - 6."""
+    rng = np.random.RandomState(seed)
+    e1 = rng.randint(-3, 4, (n1, d)).astype(np.float32)
+    e2 = rng.randint(-3, 4, (n2, d)).astype(np.float32)
+    e2[:, 0] = -rng.randint(1, 4, n2)
+    e1[0, 0] = 0
+    top = 3 * np.where(e1[0] >= 0, 1, -1).astype(np.float32)
+    top[0] = -3
+    e2[[3, n2 - 5]] = top
+    e1[1] = np.eye(1, d)
+    e2[[4, n2 - 6]] = -1
+    e2[4, 0], e2[n2 - 6, 0] = -0.0, 0.0
+    gidx = rng.randint(0, n2, n1).astype(np.int32)
+    return e1, e2, gidx, rng
+
+
+@pytest.mark.parametrize("csls", [False, True])
+@pytest.mark.parametrize("col_block", [7, 32, 64])
+def test_rank_plain_col_block_matches_pallas(col_block, csls):
+    """The plain version's column slices merge by the kernel's rule
+    (counts add up; the larger best wins, the smaller column on equal
+    values, -0.0 equal to +0.0), as the Pallas kernel's column blocks do.
+    Every col_block puts row 0's two tied maxima in two slices."""
+    n1, n2, d = 40, 96, 12
+    e1, e2, gidx, rng = _exact_setup(6, n1, n2, d)
+    s = e1.astype(np.int64) @ e2.T.astype(np.int64)
+    r2 = None
+    if csls:
+        r2 = rng.randint(-4, 5, n2).astype(np.float32)
+        r2[[3, n2 - 5]] = -4
+        s = 2 * s - r2.astype(np.int64)[None, :]
+    gold = (s[np.arange(n1), gidx] - np.arange(n1) % 2).astype(np.float32)
+    cnt, bidx, bval = rank_count_pallas(
+        jnp.asarray(e1), jnp.asarray(gold), jnp.asarray(gidx),
+        jnp.asarray(e2), None if r2 is None else jnp.asarray(r2), bm=8,
+        bn=col_block, use_csls=csls, interpret=True)
+    got = trk.rank_count_plain(
+        torch.tensor(e1), torch.tensor(gold), torch.tensor(gidx),
+        torch.tensor(e2), None if r2 is None else torch.tensor(r2),
+        row_block=16, col_block=col_block)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(cnt))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(bidx))
+    np.testing.assert_allclose(got[2].numpy(), np.asarray(bval), rtol=1e-6)
+    np.testing.assert_array_equal(got[0].numpy(), [
+        np.sum((s[i] > gold[i]) & (np.arange(n2) != gidx[i]))
+        for i in range(n1)])
+    assert int(got[1][0]) == 3
+    if not csls:
+        assert int(got[1][1]) == 4 and float(got[2][1]) == 0.0
+
+
+def test_rank_count_checks_on_cpu():
+    """rank_count checks its inputs on the CPU as on the card, but for the
+    kernel's limit on d, which the plain version does not have."""
+    e1, e2 = torch.zeros(4, 3), torch.zeros(5, 3)
+    gold, gidx = torch.zeros(4), torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(TypeError):
+        trk.rank_count(e1, gold, gidx.long(), e2)
+    with pytest.raises(TypeError):
+        trk.rank_count(e1.double(), gold, gidx, e2)
+    with pytest.raises(ValueError):
+        trk.rank_count(torch.zeros(3, 4).T, gold, gidx, e2)
+    with pytest.raises(ValueError):
+        trk.rank_count(e1, gold, gidx, e2, torch.zeros(4))
+    with pytest.raises(ValueError):
+        trk.rank_count(e1, gold, gidx, torch.zeros(0, 3))
+    d = trk.MAX_DIM + 1
+    cnt, bidx, _ = trk.rank_count(torch.ones(4, d), gold, gidx,
+                                  torch.ones(5, d))
+    assert cnt.tolist() == [4] * 4 and bidx.tolist() == [0] * 4
+
+
 def test_rank_plain_ties_first_index_and_gold_excluded():
     e1 = np.array([[1.0, 0.0], [0.0, 1.0]], np.float32)
     e2 = np.array([[0.0, 1.0], [0.0, 1.0], [1.0, 0.0], [1.0, 0.0]],
