@@ -21,14 +21,25 @@ Phases, each of which must pass or the script exits non-zero:
      port's synthetic 20K-entity KG pair and ``views.valid_metrics`` ranks
      it; the rv valid MRR must rise and both kernels must have launched;
   5. relation-view throughput at bench.py's shape (100K entities and 600K
-     random triples per KG, batch 80000).
+     random triples per KG, batch 80000);
+  6. the ITC driver, through the calls ``cli.main`` makes (DataModel with
+     the literal encoder at full width, predicate alignment,
+     ``MultiKE_ITC.run``) on the 20K pair, d=75, row-sparse on, cut to 10
+     epochs with the neighbor refresh at epoch 5 and one evaluation at
+     epoch 10. Every stream's loss must be finite, K1 must launch in each of
+     the 7 streams and K2 once per evaluation, truncated epochs must follow
+     the refresh, rv and final valid MRR must rise, the embeddings must be
+     saved, and from the trained state one attr_view and one common_space
+     step and the neighbor ids of 256 rows must agree with the CPU's.
 
-It then prints one ``{"kernels": [...]}`` line, the card's name and power
-limit as nvidia-smi reports them, and last ``{"ok": true, "device": ...}``.
+It then prints one ``{"kernels": [...]}`` line (``launches`` counts the ITC
+run; ``launches_by_path`` adds phase 4's), the card's name and power limit
+as nvidia-smi reports them, and last ``{"ok": true, "device": ...}``.
 Without a CUDA device, or without the package beside it, it fails.
 """
 from __future__ import annotations
 
+import glob
 import json
 import os
 import re
@@ -409,17 +420,30 @@ def phase_rank(dev, peaks, d=75, csls_n=(5_000, 10_000), csls_k=10):
 
 
 class _Data:
-    """What this slice's trainer reads of a data model: the KG pair."""
+    """A data model with only the KG pair, which is all the relation-view
+    streams read."""
 
     def __init__(self, kgs):
         self.kgs = kgs
+
+
+def synthetic_pair(n: int) -> str:
+    """The synthetic KG pair with ``n`` entities per KG, in the shape of
+    benchmarks/quality_at_scale.py (6n relation and 3n attribute triples
+    per KG)."""
+    from multike_tpu_torch.data import synthetic
+
+    return synthetic.generate(
+        os.path.join(REPO, "output", "chip_smoke", f"syn{n}") + "/", seed=11,
+        n_entities=n, n_relations=max(8, n // 100),
+        n_attributes=max(6, n // 500), n_rel_triples=6 * n,
+        n_attr_triples=3 * n)
 
 
 def phase_main_path(dev, n=20_000, epochs=4, dim=75, batch=5000):
     """Train through MultiKETrainer on the synthetic pair and evaluate
     through views.valid_metrics; returns the kernels' launch counts."""
     from multike_tpu_torch.config import Config
-    from multike_tpu_torch.data import synthetic
     from multike_tpu_torch.data.kg import read_kgs_from_folder
     from multike_tpu_torch.eval import views
     from multike_tpu_torch.kernels import apply_kernel as ak
@@ -427,11 +451,7 @@ def phase_main_path(dev, n=20_000, epochs=4, dim=75, batch=5000):
     from multike_tpu_torch.train.trainer import MultiKETrainer
 
     t0 = time.time()
-    folder = synthetic.generate(
-        os.path.join(REPO, "output", "chip_smoke", f"syn{n}") + "/", seed=11,
-        n_entities=n, n_relations=max(8, n // 100),
-        n_attributes=max(6, n // 500), n_rel_triples=6 * n,
-        n_attr_triples=3 * n)
+    folder = synthetic_pair(n)
     kgs = read_kgs_from_folder(folder, "631/", "swapping", False)
     cfg = Config(training_data=folder, dim=dim, batch_size=batch,
                  neg_triple_num=10, learning_rate=0.01,
@@ -594,6 +614,250 @@ def profile_epoch(run_epoch, epoch_ms: float, top: int = 8):
             "top_device_ms": {n[:100]: us / 1e3 for n, us in ranked}}
 
 
+# The trainer's epoch method of each ITC stream.
+ITC_STREAMS = {
+    "rel_view": "train_relation_view_1epo",
+    "ckge_rel": "train_cross_kg_entity_inference_relation_view_1epo",
+    "ckgp_rel": "train_cross_kg_relation_inference_1epo",
+    "attr_view": "train_attribute_view_1epo",
+    "ckge_attr": "train_cross_kg_entity_inference_attribute_view_1epo",
+    "ckga_attr": "train_cross_kg_attribute_inference_1epo",
+    "common_space": "train_common_space_learning_1epo",
+}
+
+
+def _count_launches(fn, into: dict, key: str):
+    """``fn`` wrapped to add the kernels' launches and the seconds of each
+    call under ``key``."""
+    from multike_tpu_torch.kernels import apply_kernel as ak
+    from multike_tpu_torch.kernels import rank_kernel as rk
+
+    def wrapped(*a, **kw):
+        k1, k2, t0 = ak.launches, rk.launches, time.time()
+        out = fn(*a, **kw)
+        rec = into.setdefault(key, {"calls": 0, "fused_row_adagrad": 0,
+                                    "rank_count": 0, "seconds": []})
+        rec["calls"] += 1
+        rec["fused_row_adagrad"] += ak.launches - k1
+        rec["rank_count"] += rk.launches - k2
+        rec["seconds"].append(time.time() - t0)
+        return out
+    return wrapped
+
+
+def phase_itc(dev, n=20_000, dim=75, batch=5000, epochs=10, cpu_rows=256):
+    """The ITC driver through the calls ``cli.main`` makes (DataModel,
+    PredicateAlignModel, ``MultiKE_ITC.run``) at full width on the 20K
+    pair, cut to ``epochs`` epochs; returns the kernels' launches and the
+    phase's numbers."""
+    import numpy as np
+
+    from multike_tpu_torch.align.predicates import PredicateAlignModel
+    from multike_tpu_torch.config import Config
+    from multike_tpu_torch.data.dataset import DataModel
+    from multike_tpu_torch.eval import views
+    from multike_tpu_torch.kernels import apply_kernel as ak
+    from multike_tpu_torch.kernels import rank_kernel as rk
+    from multike_tpu_torch.persistence import EMBEDDING_FILES, ID_FILES
+    from multike_tpu_torch.train.itc import MultiKE_ITC
+
+    folder = synthetic_pair(n)
+    out = os.path.join(REPO, "output", "chip_smoke", "itc") + "/"
+    cfg = Config(training_data=folder, output=out,
+                 word2vec_path=folder + "mini_word2vec.vec", dim=dim,
+                 batch_size=batch, entity_batch_size=batch,
+                 attribute_batch_size=batch, neg_triple_num=10,
+                 learning_rate=0.01, row_sparse_updates="on",
+                 encoder_epoch=5, max_epoch=epochs, truncated_freq=epochs // 2,
+                 start_predicate_soft_alignment=epochs // 2,
+                 start_valid=epochs, eval_freq=epochs, is_save=True)
+    t0 = time.time()
+    data = DataModel(cfg, verbose=True, device=dev)
+    datamodel_s = time.time() - t0
+    t0 = time.time()
+    pam = PredicateAlignModel(data.kgs, cfg)
+    predicates_s = time.time() - t0
+    log(f"[itc] DataModel {datamodel_s:.2f} s ({len(data.literal_list)} "
+        f"literals; parts {data.seconds}), predicate alignment "
+        f"{predicates_s:.2f} s")
+
+    model = MultiKE_ITC(cfg, data, pam, verbose=True, device=dev)
+    before = {v: views.valid(model, v) for v in ("rv", "final")}
+    by_stream, by_eval = {}, {}
+    for stream, meth in ITC_STREAMS.items():
+        setattr(model, meth, _count_launches(getattr(model, meth), by_stream,
+                                             stream))
+    saved = views.valid_metrics, views.test
+    views.valid_metrics = _count_launches(saved[0], by_eval, "valid")
+    views.test = _count_launches(saved[1], by_eval, "test")
+    try:
+        ak.launches = 0
+        rk.launches = 0
+        t0 = time.time()
+        results = model.run()
+        run_s = time.time() - t0
+        launches = {"fused_row_adagrad": ak.launches,
+                    "rank_count": rk.launches}
+    finally:
+        views.valid_metrics, views.test = saved
+    after = {v: views.valid(model, v) for v in ("rv", "final")}
+    log(f"[itc] {epochs} epochs in {run_s:.1f} s; valid MRR before -> "
+        f"after: rv {before['rv']:.4f} -> {after['rv']:.4f}, final "
+        f"{before['final']:.4f} -> {after['final']:.4f}; test MRR {results}")
+
+    recs = model.metrics.records
+    streams_s = {}
+    for stream in ITC_STREAMS:
+        rs = [r for r in recs if r.get("stream") == stream]
+        check(rs and all(np.isfinite(r["loss"]) for r in rs),
+              f"{stream}: no epoch or a loss that is not finite")
+        check(by_stream[stream]["fused_row_adagrad"] > 0,
+              f"K1 did not launch in {stream}")
+        secs = [r["seconds"] for r in rs]
+        streams_s[stream] = {"epochs": len(rs), "first_s": secs[0],
+                             "mean_later_s": float(np.mean(secs[1:]))
+                             if len(secs) > 1 else None,
+                             "k1_launches": by_stream[stream][
+                                 "fused_row_adagrad"]}
+    evals = sum(r["calls"] for r in by_eval.values())
+    check(launches["rank_count"] == evals > 0,
+          f"K2 launches {launches['rank_count']} for {evals} evaluations")
+    check(launches["fused_row_adagrad"] == sum(
+        r["fused_row_adagrad"] for r in by_stream.values()),
+        "K1 launched outside the streams")
+    refresh = [r for r in recs if r.get("stream") == "neighbors"]
+    rel = [r for r in recs if r.get("stream") == "rel_view"]
+    check(refresh and any(r["truncated"] for r in rel),
+          "no neighbor refresh, or no truncated rel_view epoch after it")
+    check(all(after[v] > before[v] for v in after),
+          f"valid MRR did not rise: {before} -> {after}")
+    check(set(results) == {"nv", "rv", "av", "final"}
+          and all(np.isfinite(v) for v in results.values()),
+          f"test MRRs {results}")
+    runs = sorted(glob.glob(os.path.join(out, "MultiKE_ITC", "*", "*")))
+    check(runs and set(os.listdir(runs[-1])) >= {
+        f + ".npy" for f in EMBEDDING_FILES} | set(ID_FILES),
+        "the saved embeddings are missing")
+    cpu = check_itc_against_cpu(model, cpu_rows)
+    busy = profile_itc_epoch(model, epochs + 1,
+                             sum(r["seconds"] for r in recs
+                                 if r.get("epoch") == epochs
+                                 and r["stream"] in ITC_STREAMS) * 1e3)
+
+    numbers = dict(
+        entities_per_kg=n, dim=dim, batch=batch, epochs=epochs,
+        literals=len(data.literal_list), datamodel_s=datamodel_s,
+        datamodel_parts_s=data.seconds,
+        predicates_s=predicates_s, run_s=run_s, streams=streams_s,
+        neighbor_refresh_s=[r["seconds"] for r in refresh],
+        truncated_epochs=sum(r["truncated"] for r in rel),
+        evals={k: {"calls": r["calls"], "k2_launches": r["rank_count"],
+                   "ms": [1e3 * x for x in r["seconds"]]}
+               for k, r in by_eval.items()},
+        valid_before=before, valid_after=after, test_mrr=results,
+        launches=launches, card_vs_cpu=cpu, profiled_epoch=busy)
+    log(f"[itc] {json.dumps(numbers)}")
+    return launches, numbers
+
+
+def profile_itc_epoch(model, epoch: int, epoch_ms: float):
+    """One more epoch of the 7 streams, as the driver runs them after the
+    soft-alignment start, under torch.profiler (``profile_epoch``);
+    ``epoch_ms`` is the unprofiled time of the run's last epoch."""
+    kgs, pam = model.kgs, model.predicate_align_model
+    args = {
+        "rel_view": (),
+        "ckge_rel": (kgs.kg1.sup_relation_triples_list
+                     + kgs.kg2.sup_relation_triples_list,),
+        "ckgp_rel": (pam.sup_relation_alignment_triples1
+                     + pam.sup_relation_alignment_triples2,),
+        "attr_view": (),
+        "ckge_attr": (kgs.kg1.sup_attribute_triples_list
+                      + kgs.kg2.sup_attribute_triples_list,),
+        "ckga_attr": (pam.sup_attribute_alignment_triples1
+                      + pam.sup_attribute_alignment_triples2,),
+        "common_space": (kgs.kg1.entities_list + kgs.kg2.entities_list,),
+    }
+
+    def run_epoch():
+        for stream, meth in ITC_STREAMS.items():
+            getattr(model, meth)(epoch, *args[stream])
+
+    run_epoch()                    # uploads the lists this epoch builds
+    return profile_epoch(run_epoch, epoch_ms)
+
+
+def check_itc_against_cpu(model, rows: int):
+    """From the trained state, one attr_view step and one common_space step
+    on the card and on the CPU agree to rtol 3e-5 / atol 1e-6, and a fresh
+    neighbor refresh on the card gives the CPU's top-k on the first
+    ``rows`` useful entities of KG1 (a differing id must score within 1e-5
+    of the row's k-th score)."""
+    import torch
+
+    from multike_tpu_torch.params import l2_normalize
+    from multike_tpu_torch.train import streams
+
+    cfg, gen = model.cfg, model.gen
+    t1, f1, t2, f2 = model._weighted_attr_arrays()
+    attr, _, _ = streams.build_attr_view_epoch(cfg, len(t1), len(t2))
+    ents = model._cached_array("common_space_ents",
+                               model.kgs.kg1.entities_list
+                               + model.kgs.kg2.entities_list)
+    common, _, _ = streams.build_common_space_epoch(cfg, len(ents))
+    sel = torch.randperm(len(ents), generator=gen,
+                         device=gen.device)[:common.bs]
+    cases = {"attr_view": (attr.step, [x[0] for x in attr.draw(
+                 gen, t1, f1, t2, f2)]),
+             "common_space": (common.step, [ents[sel]])}
+    def copy_to(tree, dev):
+        if isinstance(tree, dict):
+            return {k: copy_to(v, dev) for k, v in tree.items()}
+        return tree.to(dev, copy=True)
+
+    worst = {}
+    for stream, (step, batch) in cases.items():
+        names = streams.STREAM_VARS[stream]
+        res = []
+        for dev in (model.device, torch.device("cpu")):
+            params = copy_to({k: model.params[k] for k in names}, dev)
+            acc = copy_to(model.opt_states[stream], dev)
+            loss = step(params, acc, copy_to(model.constants, dev),
+                        *(x.to(dev) for x in batch))
+            res.append((float(loss), [t.cpu() for t in streams._leaves(
+                params) + streams._leaves(acc)]))
+        (l_card, t_card), (l_cpu, t_cpu) = res
+        excess = max(float(((g - w).abs() - (1e-6 + 3e-5 * w.abs())).max())
+                     for g, w in zip(t_card, t_cpu))
+        check(excess <= 0 and abs(l_card - l_cpu) <= 3e-5 * abs(l_cpu),
+              f"a {stream} step on the card differs from the CPU's: loss "
+              f"{l_card} vs {l_cpu}, worst excess over tolerance {excess:.3e}")
+        worst[stream] = {"loss_card": l_card, "loss_cpu": l_cpu,
+                         "worst_excess": excess}
+
+    model.generate_neighbors()
+    kgs, k = model.kgs, min(model.k_nbr1, len(model.kgs.useful_entities_list1))
+    u = torch.as_tensor(kgs.useful_entities_list1, dtype=torch.long)
+    rv = l2_normalize(model.params["rv_ent"], axis=1).cpu()[u]
+    s = rv[:rows] @ rv.T
+    top = torch.topk(s, k, dim=1)
+    col_of = {int(e): j for j, e in enumerate(u.tolist())}
+    card = model.neighbors.nbr[u[:rows].to(model.device), :k].cpu()
+    differing = 0
+    for r in range(rows):
+        got, want = set(card[r].tolist()), set(u[top.indices[r]].tolist())
+        for e in got ^ want:
+            differing += 1
+            check(abs(float(s[r, col_of[e]]) - float(top.values[r, -1]))
+                  <= 1e-5, f"neighbor row {r}: id {e} is no tie at the k-th "
+                  "score")
+    log(f"[itc] card vs CPU: attr_view and common_space steps agree "
+        f"({worst}); neighbor ids of {rows} rows (k={k}) equal but for "
+        f"{differing} ties at the k-th score")
+    return dict(steps=worst, neighbor_rows=rows, k=k,
+                neighbor_tie_swaps=differing)
+
+
 def main() -> int:
     try:
         import torch
@@ -634,11 +898,14 @@ def main() -> int:
         return 0
     k1 = phase_apply(dev, peaks)
     k2 = phase_rank(dev, peaks)
-    launches = phase_main_path(dev)
+    main_launches = phase_main_path(dev)
     rate = phase_throughput(dev, card)
+    itc_launches, _ = phase_itc(dev)
 
-    k1["launches"] = launches["fused_row_adagrad"]
-    k2["launches"] = launches["rank_count"]
+    for k in (k1, k2):
+        k["launches"] = itc_launches[k["name"]]
+        k["launches_by_path"] = {"itc": itc_launches[k["name"]],
+                                 "rel_view": main_launches[k["name"]]}
     log(f"[rate] {json.dumps(rate)}")
     log(f"[done] all phases passed in {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": [k1, k2]}), flush=True)

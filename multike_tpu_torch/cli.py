@@ -1,0 +1,77 @@
+"""Command line: ``python -m multike_tpu_torch.cli -m ITC -d <data-folder>
+[--args args.json] [--device cpu]`` (counterpart of multike_tpu/cli.py).
+
+Loads a reference-format JSON config (``--args``), overrides
+``training_data`` and any field given with ``--set KEY=VALUE``, builds the
+DataModel and the predicate-alignment model, then runs the mode's driver.
+It runs on the card unless ``--device`` names another device; without a
+card it stops rather than run on the CPU. The SSL mode is not ported yet.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+
+from multike_tpu_torch.config import Config, load_config
+from multike_tpu_torch.utils.device import resolve_device
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description="MultiKE (PyTorch)")
+    ap.add_argument("-m", "--mode", choices=["ITC", "SSL"], required=True)
+    ap.add_argument("-d", "--training_data", type=str, required=True)
+    ap.add_argument("--args", type=str, default=None,
+                    help="path to a reference-format args.json")
+    ap.add_argument("--max_epoch", type=int, default=None)
+    ap.add_argument("--seed", type=int, default=None)
+    ap.add_argument("--device", type=str, default=None,
+                    help="torch device to run on (default: the card)")
+    ap.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
+                    help="override any Config field, e.g. --set dim=32")
+    ns = ap.parse_args(argv)
+    if ns.mode == "SSL":
+        raise NotImplementedError(
+            "the SSL driver (space_mapping and WVA) arrives in a later slice "
+            "of the port")
+    device = resolve_device(ns.device)
+
+    cfg = load_config(ns.args) if ns.args and os.path.exists(ns.args) \
+        else Config()
+    overrides = {"training_data": ns.training_data.rstrip("/") + "/"}
+    if ns.max_epoch is not None:
+        overrides["max_epoch"] = ns.max_epoch
+    if ns.seed is not None:
+        overrides["seed"] = ns.seed
+    fields = {f.name for f in dataclasses.fields(Config)}
+    for kv in ns.set:
+        key, _, val = kv.partition("=")
+        if key not in fields:
+            ap.error(f"unknown config field {key!r}")
+        current = getattr(cfg, key)
+        if isinstance(current, bool):
+            overrides[key] = val.lower() in ("1", "true", "yes")
+        elif isinstance(current, int):
+            overrides[key] = int(val)
+        elif isinstance(current, float):
+            overrides[key] = float(val)
+        elif isinstance(current, list):
+            overrides[key] = [int(x) for x in val.split(",")]
+        else:
+            overrides[key] = val
+    cfg = cfg.replace(**overrides)
+
+    from multike_tpu_torch.align.predicates import PredicateAlignModel
+    from multike_tpu_torch.data.dataset import DataModel
+    from multike_tpu_torch.train.itc import MultiKE_ITC
+
+    data = DataModel(cfg, verbose=True, device=device)
+    pam = PredicateAlignModel(data.kgs, cfg)
+    model = MultiKE_ITC(cfg, data, pam, device=device)
+    results = model.run()
+    print("final test MRRs:", results)
+    return results
+
+
+if __name__ == "__main__":
+    main()

@@ -65,8 +65,9 @@ class Config:
     # ported yet).
     neg_scheme: str = "chunk_shared"
     neg_chunk_size: int = 4096
-    # Negative scheme, chunk size and pool size of the neighbor-truncated
-    # phase (not ported yet).
+    # Negative scheme, chunk size and pool size C of the neighbor-truncated
+    # phase (epochs after the first neighbor refresh); 0 pool = the
+    # uniform phase's. Only "chunk_shared" is ported.
     truncated_neg_scheme: str = "chunk_shared"
     truncated_chunk_size: int = 4096
     truncated_pool_size: int = 128

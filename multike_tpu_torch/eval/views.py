@@ -1,10 +1,10 @@
 """Per-view evaluation (counterpart of multike_tpu/eval/views.py).
 
-``valid_metrics`` / ``valid`` / ``test`` rank one view's embeddings
-(``embed_choice`` in {rv, av, final}; nv needs the name pipeline). The
-embeddings stay on the trainer's device: only the (n1,) rank vectors reach
-the host. The 'avg' choice and WVA weighting arrive with the combination
-slice.
+``valid_metrics`` / ``valid`` / ``test`` rank one choice of embeddings:
+``embed_choice`` in {nv, rv, av, final}, or 'avg', the w-weighted sum of
+the nv, rv and av views. The embeddings stay on the trainer's device: only
+the (n1,) rank vectors reach the host. WVA (weighted view averaging)
+arrives with the SSL slice.
 """
 from __future__ import annotations
 
@@ -15,12 +15,13 @@ import torch
 from multike_tpu_torch.eval import evaluation as eva
 
 
-def _choose_embeds(trainer, embed_choice: str):
+def _choose_embeds(trainer, embed_choice: str, w=(1, 1, 1)):
+    get = trainer.current_embeds_device
+    if embed_choice in ("nv", "rv", "av", "final"):
+        return get(embed_choice)
     if embed_choice == "avg":
-        raise NotImplementedError(
-            "the 'avg' / WVA view combination arrives in a later slice of "
-            "the port")
-    return trainer.current_embeds_device(embed_choice)
+        return w[0] * get("nv") + w[1] * get("rv") + w[2] * get("av")
+    raise KeyError(embed_choice)
 
 
 def _engine_kw(trainer):
@@ -37,10 +38,11 @@ def _rows(embeds, ids):
     return embeds[torch.as_tensor(ids, dtype=torch.long, device=embeds.device)]
 
 
-def valid_metrics(trainer, embed_choice: str = "rv") -> Tuple[float, float]:
+def valid_metrics(trainer, embed_choice: str = "avg",
+                  w=(1, 1, 1)) -> Tuple[float, float]:
     """(hits@1, mrr) on the validation split, ranked against the valid and
     test entities of KG2."""
-    ent_embeds = _choose_embeds(trainer, embed_choice)
+    ent_embeds = _choose_embeds(trainer, embed_choice, w)
     kgs = trainer.kgs
     if trainer.verbose:
         print(embed_choice, "valid results:")
@@ -50,12 +52,12 @@ def valid_metrics(trainer, embed_choice: str = "rv") -> Tuple[float, float]:
                      normalize=True, **_engine_kw(trainer))
 
 
-def valid(trainer, embed_choice: str = "rv") -> float:
-    return valid_metrics(trainer, embed_choice)[1]
+def valid(trainer, embed_choice: str = "avg", w=(1, 1, 1)) -> float:
+    return valid_metrics(trainer, embed_choice, w)[1]
 
 
-def test(trainer, embed_choice: str = "rv") -> float:
-    ent_embeds = _choose_embeds(trainer, embed_choice)
+def test(trainer, embed_choice: str = "avg", w=(1, 1, 1)) -> float:
+    ent_embeds = _choose_embeds(trainer, embed_choice, w)
     kgs = trainer.kgs
     if trainer.verbose:
         print(embed_choice, "test results:")

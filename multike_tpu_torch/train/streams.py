@@ -1,23 +1,30 @@
 """Per-loss training streams (counterpart of multike_tpu/train/streams.py).
 
-Ported so far: the relation-view stream in its uniform (pre-neighbor-
-refresh) phase with chunk-shared negatives, and the cross-KG entity
-inference stream of the relation view (ckge_rel), which trains the swapped
-supervision triples and so carries the view's only cross-KG signal. The
-relation-view epoch draws every step's positives, tail masks and candidate
-pools up front, then runs one step function per batch; the step function
-is public so the tests can hold it against a step composed from the JAX
-package.
+The seven streams of the ITC driver are ported: the relation view
+(``rel_view``, chunk-shared negatives in the uniform phase and, after the
+first neighbor refresh, in the truncated phase), the attribute view
+(``attr_view``), the cross-KG inference streams (``ckge_rel``,
+``ckgp_rel``, ``ckge_attr``, ``ckga_attr``) and the ITC combination
+(``common_space``). ``space_mapping`` (the SSL driver), per-slot sampling
+and the non-Adagrad optimizers are not ported yet and raise.
+
+Each epoch draws its indices (and the rel_view pools) up front, then runs
+one public step function per batch, so the tests can hold a step with
+injected inputs against a step composed from the JAX package.
 
 Each stream is written as ``(prep, loss_fn)``: ``prep`` builds the row-id
 vectors, ``loss_fn`` consumes the RAW gathered rows, so the update can run
 on either of two same-math paths:
 
   * row-sparse Adagrad (train/sparse_adagrad.py): gradients are taken with
-    respect to the gathered rows and applied to those rows only;
+    respect to the gathered rows and applied to those rows only, one K1
+    launch per row table;
   * dense Adagrad: gradients flow through the gather to the full tables.
 
-Parameters and accumulators are updated in place.
+Parameters and accumulators are updated in place. Unlike the JAX package,
+the sampled streams draw from their lists' true length: there are no
+capacity buckets (those only spared XLA a recompile, and their wrap
+padding repeated triples).
 
 Stream variable ownership (row-sparse tables | dense):
 
@@ -39,11 +46,16 @@ import torch
 import torch.nn.functional as F
 
 from multike_tpu_torch.config import Config
-from multike_tpu_torch.losses import (chunk_shared_relation_logistic_loss,
+from multike_tpu_torch.losses import (alignment_loss,
+                                      chunk_shared_relation_logistic_loss,
+                                      logistic_loss_wo_negs,
+                                      positive_logistic_from_scores,
                                       relation_logistic_loss_wo_negs)
 from multike_tpu_torch.params import l2_normalize, lookup_norm_fast
-from multike_tpu_torch.sampling import sample_shared_corruptions
+from multike_tpu_torch.sampling import (sample_shared_corruptions,
+                                        sample_shared_neighbor_corruptions)
 from multike_tpu_torch.train import sparse_adagrad
+from multike_tpu_torch.views.attr_conv import conv_score
 
 STREAM_SPEC: Dict[str, Tuple[Tuple[str, ...], Tuple[str, ...]]] = {
     "rel_view": (("rv_ent",), ("rel",)),
@@ -105,6 +117,26 @@ def init_stream_opt_states(cfg: Config, params) -> Dict:
             for stream, names in STREAM_VARS.items()}
 
 
+def _leaves(tree):
+    """The tensors of a tensor or nested dict, in insertion order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
+
+
+def _rebuild(tree, it):
+    """``tree``'s structure filled from the iterator ``it``."""
+    if isinstance(tree, dict):
+        return {k: _rebuild(v, it) for k, v in tree.items()}
+    return next(it)
+
+
+def _grad_leaf(tree):
+    if isinstance(tree, dict):
+        return {k: _grad_leaf(v) for k, v in tree.items()}
+    return tree.detach().requires_grad_()
+
+
 def _make_stream_update(cfg: Config, stream: str, prep, loss_fn):
     """Build ``update(params, opt_state, *batch) -> loss`` (a detached
     0-dim tensor); ``params`` and ``opt_state`` are updated in place.
@@ -112,7 +144,8 @@ def _make_stream_update(cfg: Config, stream: str, prep, loss_fn):
     ``prep(*batch) -> (ids, aux)``: ``ids`` maps each row-sparse table name
     to its (N,) id vector.
     ``loss_fn(rows, dense, aux, *batch) -> loss``: ``rows[t]`` are the RAW
-    gathered rows ``table[ids[t]]``, ``dense[k]`` the full small tables."""
+    gathered rows ``table[ids[t]]``, ``dense[k]`` the full small tables
+    (a nested dict for a conv scorer)."""
     _require_adagrad(cfg)
     row_tables, dense_names = STREAM_SPEC[stream]
     names = row_tables + dense_names
@@ -124,27 +157,30 @@ def _make_stream_update(cfg: Config, stream: str, prep, loss_fn):
                                 ids_count=ids[row_tables[0]].shape[0])
         if sparse:
             rows = {t: params[t][ids[t]].requires_grad_() for t in row_tables}
-            dense = {k: params[k].detach().requires_grad_()
-                     for k in dense_names}
+            dense = {k: _grad_leaf(params[k]) for k in dense_names}
             loss = loss_fn(rows, dense, aux, *batch)
             grads = torch.autograd.grad(
-                loss, [*rows.values(), *dense.values()])
+                loss, list(rows.values()) + _leaves(dense))
+            g_dense = iter(grads[len(row_tables):])
             with torch.no_grad():
                 for t, g in zip(row_tables, grads):
                     sparse_adagrad.row_apply(params[t], opt_state[t], ids[t],
                                              g, lr)
-                for k, g in zip(dense_names, grads[len(row_tables):]):
-                    sparse_adagrad.dense_apply(params[k], opt_state[k], g, lr)
+                for k in dense_names:
+                    sparse_adagrad.dense_apply(
+                        params[k], opt_state[k], _rebuild(dense[k], g_dense),
+                        lr)
             return loss.detach()
 
-        leaves = {k: params[k].detach().requires_grad_() for k in names}
+        leaves = {k: _grad_leaf(params[k]) for k in names}
         rows = {t: leaves[t][ids[t]] for t in row_tables}
         dense = {k: leaves[k] for k in dense_names}
         loss = loss_fn(rows, dense, aux, *batch)
-        grads = torch.autograd.grad(loss, list(leaves.values()))
+        grads = iter(torch.autograd.grad(loss, _leaves(leaves)))
         with torch.no_grad():
-            for k, g in zip(names, grads):
-                sparse_adagrad.dense_apply(params[k], opt_state[k], g, lr)
+            for k in names:
+                sparse_adagrad.dense_apply(params[k], opt_state[k],
+                                           _rebuild(leaves[k], grads), lr)
         return loss.detach()
 
     return update
@@ -202,29 +238,39 @@ class RelViewEpoch:
     """Relation-view TransE epoch with chunk-shared negatives.
 
     Each KG's sub-batch is split into chunks that share two candidate pools
-    of C = ``cfg.neg_pool_size`` uniform draws from that KG's id range
-    (head- and tail-corruption); every positive scores against all 2C pool
-    members at pair weight K / (2C)
-    (losses.chunk_shared_relation_logistic_loss).
+    of C draws from that KG's id range (head- and tail-corruption); every
+    positive scores against all 2C pool members at pair weight K / (2C)
+    (losses.chunk_shared_relation_logistic_loss). In the uniform phase the
+    pools are uniform, with chunks of ``neg_chunk_size`` and C =
+    ``neg_pool_size``; in the truncated phase (``with_neighbors``) they are
+    drawn from the chunk members' neighbor rows
+    (sampling.sample_shared_neighbor_corruptions), with chunks of
+    ``truncated_chunk_size`` and C = ``truncated_pool_size``.
 
     All entity-row reads of a step (both KGs' heads, tails and pools) go
     through ONE gather, so on the row-sparse path the step's gradient is ONE
     (ids, row-gradient) pair for one fused apply.
 
-    ``epoch(params, opt_state, gen, triples1, triples2) -> loss sum`` trains
-    in place; ``step(params, opt_state, pos1, m1, ch1, ct1, pos2, m2, ch2,
-    ct2) -> loss`` is one batch with injected positives (bsp, 3), masks
-    (bsp,) and pools (nc, C)."""
+    ``epoch(params, opt_state, gen, triples1, triples2, neighbors=None) ->
+    loss sum`` trains in place; ``step(params, opt_state, pos1, m1, ch1,
+    ct1, pos2, m2, ch2, ct2) -> loss`` is one batch with injected positives
+    (bsp, 3), masks (bsp,) and pools (nc, C)."""
 
     def __init__(self, cfg: Config, n1: int, n2: int,
-                 ranges: Tuple[Tuple[int, int], Tuple[int, int]]):
+                 ranges: Tuple[Tuple[int, int], Tuple[int, int]],
+                 with_neighbors: bool = False):
         self.n1, self.n2, self.ranges = n1, n2, ranges
+        self.with_neighbors = with_neighbors
         self.steps = int(np.ceil((n1 + n2) / cfg.batch_size))
         self.bs1, self.bs2 = proportional_sizes(n1, n2, cfg.batch_size)
         self.pool = cfg.neg_pool_size or cfg.neg_triple_num
+        chunk = cfg.neg_chunk_size
+        if with_neighbors:
+            self.pool = cfg.truncated_pool_size or self.pool
+            chunk = cfg.truncated_chunk_size
         self.neg_w = cfg.neg_triple_num / (2.0 * self.pool)
-        self.nc1, self.s1 = _chunk_layout(self.bs1, cfg.neg_chunk_size)
-        self.nc2, self.s2 = _chunk_layout(self.bs2, cfg.neg_chunk_size)
+        self.nc1, self.s1 = _chunk_layout(self.bs1, chunk)
+        self.nc2, self.s2 = _chunk_layout(self.bs2, chunk)
         self.bsp1, self.bsp2 = self.nc1 * self.s1, self.nc2 * self.s2
         self.sizes = [self.bsp1, self.bsp1, self.nc1 * self.pool,
                       self.nc1 * self.pool, self.bsp2, self.bsp2,
@@ -263,38 +309,141 @@ class RelViewEpoch:
         return self._update(params, opt_state, pos1, m1, ch1, ct1, pos2, m2,
                             ch2, ct2)
 
-    def draw(self, gen: torch.Generator, triples1, triples2):
+    def _pools(self, gen, pos, m, nc, s, lo, hi, neighbors):
+        steps = self.steps
+        if self.with_neighbors:
+            # every step's chunks in one draw: a chunk's donors never leave
+            # the chunk, whichever step it belongs to
+            ch, ct = sample_shared_neighbor_corruptions(
+                gen, pos.reshape(-1, 3), steps * nc, s, self.pool, lo, hi,
+                neighbors, mask=m.reshape(-1))
+        else:
+            ch, ct = sample_shared_corruptions(gen, steps * nc, self.pool,
+                                               lo, hi)
+        shape = (steps, nc, self.pool)
+        return ch.reshape(shape), ct.reshape(shape)
+
+    def draw(self, gen: torch.Generator, triples1, triples2, neighbors=None):
         """Every step's inputs for one epoch, each stacked over steps:
         positives, masks and both pools of each KG."""
+        if self.with_neighbors and neighbors is None:
+            raise ValueError("the truncated phase needs a NeighborState")
         (lo1, hi1), (lo2, hi2) = self.ranges
         steps = self.steps
         idx1, m1 = _padded_epoch_indices(gen, self.n1, self.bs1, self.bsp1,
                                          steps)
         idx2, m2 = _padded_epoch_indices(gen, self.n2, self.bs2, self.bsp2,
                                          steps)
-        ch1, ct1 = sample_shared_corruptions(gen, steps * self.nc1, self.pool,
-                                             lo1, hi1)
-        ch2, ct2 = sample_shared_corruptions(gen, steps * self.nc2, self.pool,
-                                             lo2, hi2)
-        shape1, shape2 = (steps, self.nc1, self.pool), (steps, self.nc2,
-                                                        self.pool)
-        return (triples1[idx1], m1, ch1.reshape(shape1), ct1.reshape(shape1),
-                triples2[idx2], m2, ch2.reshape(shape2), ct2.reshape(shape2))
+        pos1, pos2 = triples1[idx1], triples2[idx2]
+        ch1, ct1 = self._pools(gen, pos1, m1, self.nc1, self.s1, lo1, hi1,
+                               neighbors)
+        ch2, ct2 = self._pools(gen, pos2, m2, self.nc2, self.s2, lo2, hi2,
+                               neighbors)
+        return pos1, m1, ch1, ct1, pos2, m2, ch2, ct2
 
     def __call__(self, params, opt_state, gen: torch.Generator, triples1,
-                 triples2):
-        xs = self.draw(gen, triples1, triples2)
+                 triples2, neighbors=None):
+        xs = self.draw(gen, triples1, triples2, neighbors)
         total = torch.zeros((), dtype=torch.float32, device=gen.device)
         for i in range(self.steps):
             total += self.step(params, opt_state, *(x[i] for x in xs))
         return total
 
 
+def build_rel_view_epoch(cfg: Config, n1: int, n2: int,
+                         ranges: Tuple[Tuple[int, int], Tuple[int, int]],
+                         with_neighbors: bool = False):
+    """Relation-view epoch, uniform phase or (``with_neighbors``) truncated
+    phase. Returns ``(epoch, steps, trained_per_epoch)``; ``epoch`` is a
+    :class:`RelViewEpoch`."""
+    if cfg.truncated_neg_scheme not in ("per_slot", "chunk_shared"):
+        raise ValueError(f"truncated_neg_scheme must be 'per_slot' or "
+                         f"'chunk_shared', got {cfg.truncated_neg_scheme!r}")
+    if cfg.neg_scheme not in ("per_slot", "chunk_shared"):
+        raise ValueError(f"neg_scheme must be 'per_slot' or 'chunk_shared', "
+                         f"got {cfg.neg_scheme!r}")
+    scheme = cfg.truncated_neg_scheme if with_neighbors else cfg.neg_scheme
+    if scheme == "per_slot":
+        raise NotImplementedError(
+            f"per-slot sampling {_LATER} (with the Bloom TripleFilter)")
+    if cfg.chunk_exact_rejection:
+        raise NotImplementedError(
+            f"chunk_exact_rejection {_LATER} (the Bloom TripleFilter)")
+    epoch = RelViewEpoch(cfg, n1, n2, ranges, with_neighbors)
+    return epoch, epoch.steps, epoch.trained_per_epoch
+
+
+# ---------------------------------------------------------------------------
+# Attribute view
+# ---------------------------------------------------------------------------
+
+class AttrViewEpoch:
+    """Attribute-view epoch: weighted positives only, scored by the conv
+    scorer. A reference quirk is kept: steps are counted with
+    ``batch_size`` but each KG's slice is sized from
+    ``attribute_batch_size``.
+
+    ``epoch(params, opt_state, gen, constants, trips1, w1, trips2, w2)``
+    trains in place; ``step(params, opt_state, constants, trip, w, mask)``
+    is one injected batch of both KGs' triples (B, 3), weights and mask."""
+
+    def __init__(self, cfg: Config, n1: int, n2: int):
+        self.n1, self.n2 = n1, n2
+        self.steps = int(np.ceil((n1 + n2) / cfg.batch_size))
+        self.bs1, self.bs2 = proportional_sizes(n1, n2,
+                                                cfg.attribute_batch_size)
+        self.trained_per_epoch = min(n1, self.steps * self.bs1) + \
+            min(n2, self.steps * self.bs2)
+
+        def prep(constants, trip, w, mask):
+            return {"av_ent": trip[:, 0]}, None
+
+        def loss_fn(rows, dense, aux, constants, trip, w, mask):
+            phs = l2_normalize(rows["av_ent"], axis=-1)
+            pas = dense["attr"][trip[:, 1]]          # unnormalized
+            pvs = constants["literal_embeds"][trip[:, 2]]
+            score = conv_score(dense["conv_av"], phs, pas, pvs, mask=mask)
+            return positive_logistic_from_scores(score, weights=w, mask=mask)
+
+        self.step = _make_stream_update(cfg, "attr_view", prep, loss_fn)
+
+    def draw(self, gen: torch.Generator, trips1, w1, trips2, w2):
+        """Every step's (triples, weights, mask) for one epoch, each stacked
+        over steps (the JAX package's _mixed_epoch_indices: one shuffle per
+        KG)."""
+        idx1, m1 = _padded_epoch_indices(gen, self.n1, self.bs1, self.bs1,
+                                         self.steps)
+        idx2, m2 = _padded_epoch_indices(gen, self.n2, self.bs2, self.bs2,
+                                         self.steps)
+        return (torch.cat([trips1[idx1], trips2[idx2]], dim=1),
+                torch.cat([w1[idx1], w2[idx2]], dim=1),
+                torch.cat([m1, m2], dim=1))
+
+    def __call__(self, params, opt_state, gen: torch.Generator, constants,
+                 trips1, w1, trips2, w2):
+        xs = self.draw(gen, trips1, w1, trips2, w2)
+        total = torch.zeros((), dtype=torch.float32, device=gen.device)
+        for i in range(self.steps):
+            total += self.step(params, opt_state, constants,
+                               *(x[i] for x in xs))
+        return total
+
+
+def build_attr_view_epoch(cfg: Config, n1: int, n2: int):
+    epoch = AttrViewEpoch(cfg, n1, n2)
+    return epoch, epoch.steps, epoch.trained_per_epoch
+
+
+# ---------------------------------------------------------------------------
+# Streams that sample each step's batch
+# ---------------------------------------------------------------------------
+
 class SampledEpoch:
     """Epoch of a stream that draws each step's batch without replacement
     from ``n`` items (the reference's ``random.sample``).
-    ``epoch(params, opt_state, gen, data) -> loss sum`` trains in place;
-    ``step(params, opt_state, batch) -> loss`` is one injected batch."""
+    ``epoch(params, opt_state, gen, *data, constants=None) -> loss sum``
+    trains in place; ``step(params, opt_state, [constants,] *batch) ->
+    loss`` is one injected batch (each data array sliced alike)."""
 
     def __init__(self, cfg: Config, stream: str, n: int, batch_size: int,
                  prep, loss_fn):
@@ -304,13 +453,27 @@ class SampledEpoch:
         self.trained_per_epoch = self.steps * self.bs
         self.step = _make_stream_update(cfg, stream, prep, loss_fn)
 
-    def __call__(self, params, opt_state, gen: torch.Generator, data):
+    def __call__(self, params, opt_state, gen: torch.Generator, *data,
+                 constants=None):
+        lead = () if constants is None else (constants,)
         total = torch.zeros((), dtype=torch.float32, device=gen.device)
         for _ in range(self.steps):
             sel = torch.randperm(self.n, generator=gen,
                                  device=gen.device)[:self.bs]
-            total += self.step(params, opt_state, data[sel])
+            total += self.step(params, opt_state, *lead,
+                               *(d[sel] for d in data))
         return total
+
+
+def _sampled(cfg: Config, stream: str, n: int, batch_size: int, prep,
+             loss_fn):
+    epoch = SampledEpoch(cfg, stream, n, batch_size, prep, loss_fn)
+    return epoch, epoch.steps, epoch.trained_per_epoch
+
+
+def _rv_pair_ids(pos, *rest):
+    # one fused entity gather of heads and tails -> one row-sparse apply
+    return {"rv_ent": torch.cat([pos[:, 0], pos[:, 2]])}, None
 
 
 def build_ckge_rel_epoch(cfg: Config, n: int):
@@ -318,40 +481,86 @@ def build_ckge_rel_epoch(cfg: Config, n: int):
     supervision triples, positives only, loss weight 2. Returns ``(epoch,
     steps, trained_per_epoch)``; ``epoch(params, opt_state, gen, triples)``.
     """
-    def prep(pos):
-        # one fused entity gather -> one row-sparse apply
-        return {"rv_ent": torch.cat([pos[:, 0], pos[:, 2]])}, None
-
     def loss_fn(rows, dense, aux, pos):
         hrows = l2_normalize(rows["rv_ent"], axis=-1)
         phs, pts = hrows[:pos.shape[0]], hrows[pos.shape[0]:]
         prs = lookup_norm_fast(dense["rel"], pos[:, 1])
         return 2.0 * relation_logistic_loss_wo_negs(phs, prs, pts)
 
-    epoch = SampledEpoch(cfg, "ckge_rel", n, cfg.batch_size, prep, loss_fn)
-    return epoch, epoch.steps, epoch.trained_per_epoch
+    return _sampled(cfg, "ckge_rel", n, cfg.batch_size, _rv_pair_ids,
+                    loss_fn)
 
 
-def build_rel_view_epoch(cfg: Config, n1: int, n2: int,
-                         ranges: Tuple[Tuple[int, int], Tuple[int, int]],
-                         with_neighbors: bool = False):
-    """Relation-view epoch of the uniform phase. Returns ``(epoch, steps,
-    trained_per_epoch)``; ``epoch`` is a :class:`RelViewEpoch`."""
-    if cfg.truncated_neg_scheme not in ("per_slot", "chunk_shared"):
-        raise ValueError(f"truncated_neg_scheme must be 'per_slot' or "
-                         f"'chunk_shared', got {cfg.truncated_neg_scheme!r}")
-    if cfg.neg_scheme not in ("per_slot", "chunk_shared"):
-        raise ValueError(f"neg_scheme must be 'per_slot' or 'chunk_shared', "
-                         f"got {cfg.neg_scheme!r}")
-    if with_neighbors:
-        raise NotImplementedError(
-            f"neighbor-truncated sampling {_LATER} (the truncated phase)")
-    if cfg.neg_scheme == "per_slot":
-        raise NotImplementedError(
-            f"neg_scheme='per_slot' {_LATER} (per-slot sampling with the "
-            "Bloom TripleFilter)")
-    if cfg.chunk_exact_rejection:
-        raise NotImplementedError(
-            f"chunk_exact_rejection {_LATER} (the Bloom TripleFilter)")
-    epoch = RelViewEpoch(cfg, n1, n2, ranges)
-    return epoch, epoch.steps, epoch.trained_per_epoch
+def build_ckgp_rel_epoch(cfg: Config, n: int):
+    """Cross-KG relation inference: the predicate-aligned supervision
+    4-tuples, weighted, loss weight 2. ``epoch(params, opt_state, gen, ids,
+    weights)``."""
+    def loss_fn(rows, dense, aux, pos, w):
+        hrows = l2_normalize(rows["rv_ent"], axis=-1)
+        phs, pts = hrows[:pos.shape[0]], hrows[pos.shape[0]:]
+        prs = lookup_norm_fast(dense["rel"], pos[:, 1])
+        return 2.0 * logistic_loss_wo_negs(phs, prs, pts, w)
+
+    return _sampled(cfg, "ckgp_rel", n, cfg.batch_size, _rv_pair_ids,
+                    loss_fn)
+
+
+def _av_head_ids(constants, pos, *rest):
+    return {"av_ent": pos[:, 0]}, None
+
+
+def _conv_scores(dense, conv, rows, constants, pos):
+    phs = l2_normalize(rows["av_ent"], axis=-1)
+    pas = dense["attr"][pos[:, 1]]
+    pvs = constants["literal_embeds"][pos[:, 2]]
+    return conv_score(dense[conv], phs, pas, pvs)
+
+
+def build_ckge_attr_epoch(cfg: Config, n: int):
+    """Cross-KG entity inference in the attribute view: the swapped
+    supervision attribute triples, loss weight 2. ``epoch(params,
+    opt_state, gen, triples, constants=...)``."""
+    def loss_fn(rows, dense, aux, constants, pos):
+        return 2.0 * positive_logistic_from_scores(
+            _conv_scores(dense, "conv_ckge", rows, constants, pos))
+
+    return _sampled(cfg, "ckge_attr", n, cfg.attribute_batch_size,
+                    _av_head_ids, loss_fn)
+
+
+def build_ckga_attr_epoch(cfg: Config, n: int):
+    """Cross-KG attribute inference: the predicate-aligned supervision
+    attribute 4-tuples, weighted. ``epoch(params, opt_state, gen, ids,
+    weights, constants=...)``."""
+    def loss_fn(rows, dense, aux, constants, pos, w):
+        return positive_logistic_from_scores(
+            _conv_scores(dense, "conv_ckga", rows, constants, pos),
+            weights=w)
+
+    return _sampled(cfg, "ckga_attr", n, cfg.attribute_batch_size,
+                    _av_head_ids, loss_fn)
+
+
+def build_common_space_epoch(cfg: Config, n: int):
+    """ITC combination: cv_weight * (cv_name_weight * ||e - n||^2 +
+    ||e - r||^2 + ||e - a||^2) over a batch of entities, updating the
+    shared, relation-view and attribute-view tables (three row-sparse
+    applies a step). ``epoch(params, opt_state, gen, entities,
+    constants=...)``."""
+    cvw, cnw = cfg.cv_weight, cfg.cv_name_weight
+
+    def prep(constants, ents):
+        return {"ent": ents, "rv_ent": ents, "av_ent": ents}, None
+
+    def loss_fn(rows, dense, aux, constants, ents):
+        final = l2_normalize(rows["ent"], axis=-1)
+        names = constants["name_embeds"][ents]
+        cr = l2_normalize(rows["rv_ent"], axis=-1)
+        ca = l2_normalize(rows["av_ent"], axis=-1)
+        loss = cnw * alignment_loss(final, names)
+        loss = loss + alignment_loss(final, cr)
+        loss = loss + alignment_loss(final, ca)
+        return cvw * loss
+
+    return _sampled(cfg, "common_space", n, cfg.entity_batch_size, prep,
+                    loss_fn)

@@ -1,11 +1,28 @@
-"""Host-side file helpers (counterpart of multike_tpu/utils/native.py).
+"""Host-side file and string helpers (counterpart of
+multike_tpu/utils/native.py).
 
-Only ``tsv_read_triples`` is needed by the data layer so far; the ctypes
-Levenshtein helpers arrive with predicate alignment.
+  * ``tsv_read_triples(path)``: a TSV file as a list of column lists;
+  * ``levenshtein_ratio_matrix(names1, names2)``: the dense
+    Levenshtein-ratio matrix that seeds predicate alignment;
+  * ``read_word2vec(path, dim)``: a fastText-style ``.vec`` file as
+    ``{word: float32 vector}``.
+
+The last two use ``native/libmultike_native.so`` through ctypes when that
+library has been built (``make -C native``), and a pure-Python version
+otherwise; both give equal results.
 """
 from __future__ import annotations
 
-from typing import List
+import ctypes
+import functools
+import os
+from typing import Dict, List, Sequence
+
+import numpy as np
+
+_NATIVE_LIB = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__)))), "native", "libmultike_native.so")
 
 
 def tsv_read_triples(path: str) -> List[List[str]]:
@@ -15,3 +32,126 @@ def tsv_read_triples(path: str) -> List[List[str]]:
         for line in f:
             rows.append(line.strip("\n").split("\t"))
     return rows
+
+
+@functools.lru_cache(maxsize=None)
+def native_lib():
+    """The native helper library, or None when it is not built."""
+    if not os.path.exists(_NATIVE_LIB):
+        return None
+    try:
+        lib = ctypes.CDLL(_NATIVE_LIB)
+    except OSError:
+        return None
+    lib.lev_ratio_matrix.restype = None
+    lib.lev_ratio_matrix.argtypes = [
+        ctypes.POINTER(ctypes.c_char_p), ctypes.c_int,
+        ctypes.POINTER(ctypes.c_char_p), ctypes.c_int,
+        ctypes.POINTER(ctypes.c_double), ctypes.c_int]
+    lib.vec_scan.restype = ctypes.c_int
+    lib.vec_scan.argtypes = [ctypes.c_char_p, ctypes.c_int,
+                             ctypes.POINTER(ctypes.c_longlong),
+                             ctypes.POINTER(ctypes.c_longlong)]
+    lib.vec_parse.restype = ctypes.c_int
+    lib.vec_parse.argtypes = [ctypes.c_char_p, ctypes.c_int,
+                              ctypes.POINTER(ctypes.c_float), ctypes.c_char_p,
+                              ctypes.c_longlong, ctypes.c_longlong]
+    return lib
+
+
+# ---------------------------------------------------------------------------
+# Levenshtein ratio
+# ---------------------------------------------------------------------------
+
+def lev_ratio_py(a: str, b: str) -> float:
+    """python-Levenshtein's ``ratio``: (|a| + |b| - D) / (|a| + |b|), D the
+    edit distance with insert/delete cost 1 and substitution cost 2."""
+    la, lb = len(a), len(b)
+    total = la + lb
+    if total == 0:
+        return 1.0
+    prev = list(range(lb + 1))
+    for i in range(1, la + 1):
+        cur = [i] + [0] * lb
+        ca = a[i - 1]
+        for j in range(1, lb + 1):
+            sub = prev[j - 1] + (0 if ca == b[j - 1] else 2)
+            cur[j] = min(prev[j] + 1, cur[j - 1] + 1, sub)
+        prev = cur
+    return (total - prev[lb]) / total
+
+
+def lev_ratio_matrix_py(names1: Sequence[str],
+                        names2: Sequence[str]) -> np.ndarray:
+    out = np.zeros((len(names1), len(names2)), dtype=np.float64)
+    for i, s1 in enumerate(names1):
+        for j, s2 in enumerate(names2):
+            out[i, j] = lev_ratio_py(s1, s2)
+    return out
+
+
+def levenshtein_ratio_matrix(names1: Sequence[str],
+                             names2: Sequence[str]) -> np.ndarray:
+    """(n1, n2) float64 matrix of Levenshtein ratios."""
+    n1, n2 = len(names1), len(names2)
+    lib = native_lib()
+    if lib is None or n1 == 0 or n2 == 0:
+        return lev_ratio_matrix_py(names1, names2)
+    out = np.zeros((n1, n2), dtype=np.float64)
+    arr1 = (ctypes.c_char_p * n1)(*[s.encode("utf-8") for s in names1])
+    arr2 = (ctypes.c_char_p * n2)(*[s.encode("utf-8") for s in names2])
+    lib.lev_ratio_matrix(arr1, n1, arr2, n2,
+                         out.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+                         min(8, os.cpu_count() or 1))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# .vec word-embedding files
+# ---------------------------------------------------------------------------
+
+def read_word2vec_py(file_path: str,
+                     vector_dimension: int = 300) -> Dict[str, np.ndarray]:
+    """Lines with exactly ``vector_dimension + 1`` space-separated fields;
+    the header and malformed lines are skipped, later duplicates win."""
+    word2vec: Dict[str, np.ndarray] = {}
+    with open(file_path, "r", encoding="utf-8") as f:
+        for line in f:
+            parts = line.strip("\n").split(" ")
+            if len(parts) != vector_dimension + 1:
+                continue
+            word2vec[parts[0]] = np.array(list(map(float, parts[1:])),
+                                          dtype=np.float32)
+    return word2vec
+
+
+def _read_word2vec_native(lib, file_path: str, vector_dimension: int):
+    n, wb = ctypes.c_longlong(), ctypes.c_longlong()
+    path_b = file_path.encode("utf-8")
+    if lib.vec_scan(path_b, vector_dimension, ctypes.byref(n),
+                    ctypes.byref(wb)) != 0:
+        return None
+    if n.value == 0:
+        return {}
+    mat = np.empty((n.value, vector_dimension), np.float32)
+    words_buf = ctypes.create_string_buffer(wb.value)
+    if lib.vec_parse(path_b, vector_dimension,
+                     mat.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+                     words_buf, n.value, wb.value) != 0:
+        return None
+    words = bytes(words_buf.raw[:wb.value]).decode("utf-8").split("\n")[:-1]
+    if len(words) != n.value:
+        return None
+    return {w: mat[i] for i, w in enumerate(words)}
+
+
+def read_word2vec(file_path: str,
+                  vector_dimension: int = 300) -> Dict[str, np.ndarray]:
+    """``{word: float32 vector}`` of a ``.vec`` file (see
+    :func:`read_word2vec_py` for the rules)."""
+    lib = native_lib()
+    if lib is not None:
+        out = _read_word2vec_native(lib, file_path, vector_dimension)
+        if out is not None:
+            return out
+    return read_word2vec_py(file_path, vector_dimension)

@@ -1,0 +1,72 @@
+"""Attribute-view CNN scorer (counterpart of multike_tpu/views/attr_conv.py).
+
+For a batch of (h, a, v) embeddings, each (B, dim):
+  1. stack a and v into a (B, 2, dim, 1) image (NHWC, as the JAX package);
+  2. batch norm over axis 2 in inference mode with moving statistics that
+     are never updated (the reference's ``tf.layers.batch_normalization``
+     defaults to ``training=False``): ``gamma * x / sqrt(1 + 1e-3) + beta``;
+  3. two conv2d layers, 2 feature maps, kernel (2, 4), stride 1, TF 'SAME'
+     padding, tanh. For even kernels TF pads more after than before:
+     (0, 1) in height and (1, 2) in width, done with ``F.pad`` before a
+     ``conv2d`` without padding. Weights are kept HWIO (``params.py``) and
+     permuted to OIHW; activations run NCHW and come back NHWC;
+  4. l2-normalize over axis 2;
+  5. flatten (H, W, C order) -> dense(dim, tanh) -> l2-normalize over the
+     WHOLE tensor, after zeroing the masked rows;
+  6. score = -||h - dense||^2.
+
+The convolution is PyTorch's (cuDNN on the card, with TF32 off); the JAX
+package computes it with ``lax.conv`` outside any Pallas kernel.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from multike_tpu_torch.params import l2_normalize
+
+BN_EPS = 1e-3  # tf.layers.batch_normalization default epsilon
+SAME_PAD = (1, 2, 0, 1)  # F.pad order: (left, right, top, bottom)
+
+
+def conv_stages(conv_params, attr_hs, attr_as, attr_vs, layer_num: int = 2,
+                mask=None):
+    """Every intermediate activation of the scorer, NHWC, keyed as in the
+    JAX package; :func:`conv_score` keeps only ``"score"``."""
+    B = attr_hs.shape[0]
+    stages = {}
+    x = torch.stack([attr_as, attr_vs], dim=1)[..., None]   # (B, 2, dim, 1)
+    stages["stack"] = x
+
+    gamma = conv_params["bn_gamma"][None, None, :, None]
+    beta = conv_params["bn_beta"][None, None, :, None]
+    inv = torch.rsqrt(torch.tensor(1.0 + BN_EPS, dtype=x.dtype,
+                                   device=x.device))
+    x = gamma * x * inv + beta
+    stages["bn"] = x
+
+    x = x.permute(0, 3, 1, 2)                                # NCHW
+    for i in range(layer_num):
+        w = conv_params[f"conv{i}_w"].permute(3, 2, 0, 1)    # HWIO -> OIHW
+        x = torch.tanh(F.conv2d(F.pad(x, SAME_PAD), w,
+                                conv_params[f"conv{i}_b"]))
+        stages[f"conv{i}"] = x.permute(0, 2, 3, 1)
+    x = l2_normalize(x.permute(0, 2, 3, 1), axis=2)          # (B, 2, dim, C)
+    stages["l2_axis2"] = x
+    dense = torch.tanh(x.reshape(B, -1) @ conv_params["dense_w"]
+                       + conv_params["dense_b"])
+    stages["dense_tanh"] = dense
+    if mask is not None:
+        dense = dense * mask[:, None]
+    dense = l2_normalize(dense, axis=None)                   # global norm
+    stages["dense_gnorm"] = dense
+    stages["score"] = -torch.sum(torch.square(attr_hs - dense), dim=1)
+    return stages
+
+
+def conv_score(conv_params, attr_hs, attr_as, attr_vs, layer_num: int = 2,
+               mask=None):
+    """(B,) scores. ``mask`` (B,) zeroes padded rows before the whole-tensor
+    normalization of step 5, so they do not change the real rows' values."""
+    return conv_stages(conv_params, attr_hs, attr_as, attr_vs,
+                       layer_num=layer_num, mask=mask)["score"]

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: importing it and every submodule loads
 neither JAX nor the JAX package, and no file of the port (nor
 ``chip_smoke.py``) imports them."""
+import json
 import os
 import re
 import subprocess
@@ -14,15 +15,23 @@ FORBIDDEN = re.compile(
     re.MULTILINE)
 
 _PROBE = """
-import importlib, pkgutil, sys
+import importlib, json, pkgutil, sys
 import multike_tpu_torch as m
 names = [i.name for i in pkgutil.walk_packages(m.__path__, m.__name__ + '.')]
 for n in names:
     importlib.import_module(n)
 bad = sorted(k for k in sys.modules
              if k.split('.')[0] in ('jax', 'jaxlib', 'multike_tpu'))
-print(len(names), bad)
+print(json.dumps([names, bad]))
 """
+
+# every module of the ITC slice, besides those of the first slice
+ITC_MODULES = {
+    "multike_tpu_torch." + m for m in (
+        "align.predicates", "cli", "data.cleaning", "data.dataset",
+        "persistence", "text.autoencoder", "text.char_sgns",
+        "text.literal_encoder", "text.word2vec", "train.itc",
+        "utils.metrics", "utils.native", "views.attr_conv")}
 
 
 def test_import_loads_no_jax():
@@ -31,9 +40,10 @@ def test_import_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 20          # every submodule was imported
-    assert bad == "[]", bad
+    names, bad = json.loads(out.stdout.strip().splitlines()[-1])
+    assert len(names) >= 40          # every submodule was imported
+    assert ITC_MODULES <= set(names), ITC_MODULES - set(names)
+    assert bad == [], bad
 
 
 def _sources():

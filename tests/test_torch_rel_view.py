@@ -235,7 +235,7 @@ def test_epoch_pools_in_range_and_sparse_equals_dense():
 @pytest.mark.parametrize("kw,build_kw", [
     (dict(neg_scheme="per_slot"), {}),
     (dict(chunk_exact_rejection=True), {}),
-    ({}, dict(with_neighbors=True)),
+    (dict(truncated_neg_scheme="per_slot"), dict(with_neighbors=True)),
 ])
 def test_later_slices_raise(kw, build_kw):
     with pytest.raises(NotImplementedError):
