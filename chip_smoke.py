@@ -12,7 +12,8 @@ Phases, each of which must pass or the script exits non-zero:
      report each one's registers and spills (a spill fails the run);
   2. K1, the fused row-sparse Adagrad apply, against its plain PyTorch
      version at the per-step shape of bench.py (200K x 75 table, the ids of
-     one batch-80000 chunk_shared step);
+     one batch-80000 chunk_shared step) and at that of its reference-parity
+     row (the ids of one batch-5000 per_slot step);
   3. K2, the fused rank count, against its plain version at 35K x 70K,
      d=75, and at the main path's own 6K x 6K and 2K x 8K, then in CSLS
      form; at each shape it is timed beside the plain version and
@@ -22,6 +23,10 @@ Phases, each of which must pass or the script exits non-zero:
      it; the rv valid MRR must rise and both kernels must have launched;
   5. relation-view throughput at bench.py's shape (100K entities and 600K
      random triples per KG, batch 80000);
+     Then bench.py's reference-parity row: batch 5000, per_slot negatives
+     with Bloom "drop" rejection, uniform and truncated (DWY100K-shaped
+     neighbor table), row-sparse, with a profile of a truncated epoch;
+     phase 2 also times K1 at this row's step shape;
   6. the ITC driver, through the calls ``cli.main`` makes (DataModel with
      the literal encoder at full width, predicate alignment,
      ``MultiKE_ITC.run``) on the 20K pair, d=75, row-sparse on, cut to 10
@@ -30,12 +35,25 @@ Phases, each of which must pass or the script exits non-zero:
      the 7 streams and K2 once per evaluation, truncated epochs must follow
      the refresh, rv and final valid MRR must rise, the embeddings must be
      saved, and from the trained state one attr_view and one common_space
-     step and the neighbor ids of 256 rows must agree with the CPU's.
+     step and the neighbor ids of 256 rows must agree with the CPU's;
+  7. the SSL driver the same way (phase 6's DataModel, a fresh predicate
+     alignment, ``MultiKE_SSL.run``), per-slot draws with Bloom "drop"
+     rejection in both phases, 10 epochs (refresh and soft-alignment start
+     at 5, one evaluation at 10, WVA included) and 10 epochs of
+     space_mapping (one ``final`` valid). Every stream's loss must be
+     finite, K1 must launch in all 7 SSL streams and K2 once per
+     evaluation, per-slot epochs must run before and after the refresh, rv,
+     avg and final valid MRR must rise, the 6 test MRRs must be finite and
+     the embeddings saved; the Bloom words and membership must be bit-equal
+     to the CPU's, and one per-slot rel_view step with its keep mask, one
+     space_mapping step and one dense step each of Adam, Adadelta and SGD
+     must agree with the CPU's.
 
-It then prints one ``{"kernels": [...]}`` line (``launches`` counts the ITC
-run; ``launches_by_path`` adds phase 4's), the card's name and power limit
-as nvidia-smi reports them, and last ``{"ok": true, "device": ...}``.
-Without a CUDA device, or without the package beside it, it fails.
+It then prints one ``{"kernels": [...]}`` line (``launches`` counts the SSL
+run; ``launches_by_path`` adds the ITC run's and phase 4's), the card's
+name and power limit as nvidia-smi reports them, and last ``{"ok": true,
+"device": ...}``. Without a CUDA device, or without the package beside it,
+it fails.
 """
 from __future__ import annotations
 
@@ -193,29 +211,54 @@ def phase_build():
         check(info.get("spill_bytes") == 0, f"{name} spills to local memory")
 
 
-def phase_apply(dev, peaks, n_ent=100_000, batch=80_000, rel_triples=600_000,
-                seed=0):
-    """K1 against its plain version on the ids of one bench.py step."""
+def phase_apply(dev, peaks, n_ent=100_000, rel_triples=600_000, seed=0):
+    """K1 against its plain version on the ids of one bench.py step
+    (chunk_shared, batch 80000), then on those of one step of bench.py's
+    reference-parity row (per_slot, batch 5000)."""
     import numpy as np
     import torch
 
     from multike_tpu_torch.config import Config
-    from multike_tpu_torch.kernels import apply_kernel as ak
-    from multike_tpu_torch.train import sparse_adagrad, streams
+    from multike_tpu_torch.train import streams
 
     rng = np.random.RandomState(seed)
     t1 = torch.as_tensor(bench_triples(rng, rel_triples, 0, n_ent, 500, 0),
                          device=dev)
     t2 = torch.as_tensor(bench_triples(rng, rel_triples, n_ent, 2 * n_ent,
                                        500, 500), device=dev)
-    cfg = Config(dim=75, batch_size=batch, neg_triple_num=10)
-    epoch, _, _ = streams.build_rel_view_epoch(
-        cfg, rel_triples, rel_triples, ((0, n_ent), (n_ent, 2 * n_ent)))
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    xs = [x[0] for x in epoch.draw(gen, t1, t2)]
-    ids, _ = epoch._prep(*xs)
-    ids = ids["rv_ent"]
-    E, d, N = 2 * n_ent, cfg.dim, ids.shape[0]
+    cases = {}
+    for label, cfg in (
+            ("chunk_shared", Config(dim=75, batch_size=80_000,
+                                    neg_triple_num=10)),
+            ("per_slot", Config(dim=75, batch_size=5000, neg_triple_num=10,
+                                neg_scheme="per_slot",
+                                truncated_neg_scheme="per_slot"))):
+        epoch, _, _ = streams.build_rel_view_epoch(
+            cfg, rel_triples, rel_triples, ((0, n_ent), (n_ent, 2 * n_ent)))
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        xs = [x[0] for x in epoch.draw(gen, t1, t2)]
+        ids, _ = epoch._prep(*xs)
+        cases[label] = _k1_case(dev, peaks, ids["rv_ent"], 2 * n_ent,
+                                cfg.dim, seed, label)
+    main = cases["chunk_shared"]
+    return dict(name="fused_row_adagrad", route="cuda",
+                source="multike_tpu_torch/csrc/apply_kernel.cu",
+                replaces="multike_tpu/kernels/apply_kernel.py:144",
+                max_abs_err=max(c["max_abs_err"] for c in cases.values()),
+                ms=main["ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], bound_by="bytes", library_ms=None,
+                shape=main["shape"], per_slot_step=cases["per_slot"])
+
+
+def _k1_case(dev, peaks, ids, E, d, seed, label):
+    """K1 on one step's ids into an (E, d) table: equal to the plain
+    version, untouched rows untouched, and its time beside the bound."""
+    import torch
+
+    from multike_tpu_torch.kernels import apply_kernel as ak
+    from multike_tpu_torch.train import sparse_adagrad
+
+    N = ids.shape[0]
     g = torch.Generator(device=dev).manual_seed(seed + 1)
     param = torch.randn(E, d, device=dev, generator=g)
     acc = torch.rand(E, d, device=dev, generator=g) + 0.1
@@ -254,15 +297,11 @@ def phase_apply(dev, peaks, n_ent=100_000, batch=80_000, rel_triples=600_000,
     flops = 7.0 * U * d
     mem_rate, fp32_rate = peaks
     bound_ms = max(nbytes / mem_rate, flops / fp32_rate) * 1e3
-    log(f"[K1] E={E} d={d} ids={N} unique={U} sentinels={sentinels}: "
-        f"max_abs_err={err:.3e} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB at "
-        f"{mem_rate / 1e12:.2f} TB/s)")
-    return dict(name="fused_row_adagrad", route="cuda",
-                source="multike_tpu_torch/csrc/apply_kernel.cu",
-                replaces="multike_tpu/kernels/apply_kernel.py:144",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by="bytes", library_ms=None,
+    log(f"[K1] {label} step, E={E} d={d} ids={N} unique={U} sentinels="
+        f"{sentinels}: max_abs_err={err:.3e} kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB "
+        f"at {mem_rate / 1e12:.2f} TB/s)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 shape=dict(E=E, d=d, ids=N, unique=U))
 
 
@@ -573,6 +612,109 @@ def phase_throughput(dev, card, n_ent=100_000, batch=80_000, epochs=10):
                 **busy)
 
 
+def dwy100k_neighbors(ranges, seed=3):
+    """bench.py's DWY100K-shaped neighbor state (bench.py:218-227): 30% of
+    each KG's entities have a row of k = 2% of the KG's size, drawn
+    uniformly from the KG."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    parts = []
+    for lo, hi in ranges:
+        n_useful, k = (hi - lo) * 3 // 10, max(1, (hi - lo) // 50)
+        useful = lo + rng.permutation(hi - lo)[:n_useful]
+        nbr = lo + rng.randint(0, hi - lo, size=(n_useful, k))
+        parts.append((useful.astype(np.int64), nbr.astype(np.int32)))
+    return parts
+
+
+def phase_parity(dev, card, n_ent=100_000, epochs=2):
+    """bench.py's reference-parity row (bench.py:398-416) on the card:
+    batch 5000, per_slot negatives in both phases, Bloom "drop" rejection
+    over both KGs' triples; uniform, then truncated with the DWY100K-shaped
+    neighbor table. Row-sparse on, as in phase 5, so K1 runs at the
+    per-slot step's shape. Last, one uniform epoch with "resample"
+    rejection instead: each step draws its own candidates and redraws the
+    ones that test positive, with a host sync after every round."""
+    import numpy as np
+    import torch
+
+    from multike_tpu_torch import sampling
+    from multike_tpu_torch.config import Config
+    from multike_tpu_torch.kernels import apply_kernel as ak
+    from multike_tpu_torch.params import init_params
+    from multike_tpu_torch.sampling import (build_neighbor_state,
+                                            build_triple_filter)
+    from multike_tpu_torch.train import streams
+
+    rng = np.random.RandomState(7)
+    n_tri, n_rel = 6 * n_ent, 500
+    tr1 = bench_triples(rng, n_tri, 0, n_ent, n_rel, 0)
+    tr2 = bench_triples(rng, n_tri, n_ent, 2 * n_ent, n_rel, n_rel)
+    t1, t2 = (torch.as_tensor(t, device=dev) for t in (tr1, tr2))
+    cfg = Config(dim=75, batch_size=5000, neg_triple_num=10,
+                 neg_scheme="per_slot", truncated_neg_scheme="per_slot",
+                 row_sparse_updates=True)
+    check(cfg.neg_rejection_tries > 0 and cfg.neg_reject_mode == "drop",
+          "the parity row rejects true triples by Bloom drop")
+    ranges = ((0, n_ent), (n_ent, 2 * n_ent))
+    t0 = time.time()
+    tfilter = build_triple_filter(np.concatenate([tr1, tr2]), device=dev)
+    neighbors = build_neighbor_state(2 * n_ent, dwy100k_neighbors(ranges),
+                                     device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    params = init_params(cfg, 2 * n_ent, 2 * n_rel, 2, device=dev)
+    opt = streams.init_stream_opt_states(cfg, params)["rel_view"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {"filter_and_neighbors_s": setup_s}
+    for phase, with_nbr, mode, runs in (
+            ("uniform", False, "drop", epochs),
+            ("truncated", True, "drop", epochs),
+            ("uniform_resample", False, "resample", 1)):
+        epoch, steps, trained = streams.build_rel_view_epoch(
+            cfg.replace(neg_reject_mode=mode), n_tri, n_tri, ranges,
+            with_neighbors=with_nbr, tfilter=tfilter)
+        check(epoch.scheme == "per_slot"
+              and epoch.presample == (mode == "drop"),
+              "the parity row presamples per-slot draws, unless resampling")
+        if mode == "drop":
+            float(epoch(params, opt, gen, t1, t2, neighbors))   # warm-up
+        launches0, dropped = ak.launches, 0.0
+        rounds = []                        # Bloom passes, one sync each
+        hits = sampling._slot_hits
+        sampling._slot_hits = lambda *a: rounds.append(1) or hits(*a)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(runs):
+                loss = float(epoch(params, opt, gen, t1, t2, neighbors))
+                if epoch.dropped is not None:
+                    dropped += float(epoch.dropped)
+            dt = time.perf_counter() - t0
+        finally:
+            sampling._slot_hits = hits
+        check(np.isfinite(loss), f"parity {phase} epoch loss {loss}")
+        rec = dict(triples_per_s=trained * runs / dt,
+                   seconds_per_epoch=dt / runs, steps_per_epoch=steps,
+                   k1_launches_per_epoch=(ak.launches - launches0) / runs,
+                   dropped_share=dropped / (epoch.slots * runs)
+                   if mode == "drop" else None,
+                   bloom_passes_per_step=len(rounds) / (steps * runs))
+        log(f"[parity] {phase}: batch 5000, per_slot, Bloom {mode}"
+            + (f" ({100 * rec['dropped_share']:.3f}% of slots dropped)"
+               if mode == "drop" else "")
+            + f", {steps} steps/epoch, {rec['bloom_passes_per_step']:g} "
+            f"Bloom passes a step: {runs} epochs in {dt:.3f} s -> "
+            f"{rec['triples_per_s']:,.0f} triples/s on {card}")
+        if phase == "truncated":
+            rec.update(profile_epoch(
+                lambda: float(epoch(params, opt, gen, t1, t2, neighbors)),
+                dt / epochs * 1e3))
+        out[phase] = rec
+    return out
+
+
 def profile_epoch(run_epoch, epoch_ms: float, top: int = 8):
     """One epoch under torch.profiler: the device's busy time (union of
     kernel and copy intervals), its share of the profiled epoch's wall time
@@ -645,15 +787,33 @@ def _count_launches(fn, into: dict, key: str):
     return wrapped
 
 
+def driver_config(n, mode, dim, batch, epochs, **kw):
+    """The drivers' configuration on the synthetic pair of ``n`` entities
+    per KG: full width, cut to ``epochs`` epochs with the neighbor refresh
+    and the soft-alignment start half-way and one evaluation at the end."""
+    from multike_tpu_torch.config import Config
+
+    folder = synthetic_pair(n)
+    return Config(training_data=folder,
+                  output=os.path.join(REPO, "output", "chip_smoke", mode) + "/",
+                  word2vec_path=folder + "mini_word2vec.vec", dim=dim,
+                  batch_size=batch, entity_batch_size=batch,
+                  attribute_batch_size=batch, neg_triple_num=10,
+                  learning_rate=0.01, row_sparse_updates="on",
+                  encoder_epoch=5, max_epoch=epochs,
+                  truncated_freq=epochs // 2,
+                  start_predicate_soft_alignment=epochs // 2,
+                  start_valid=epochs, eval_freq=epochs, is_save=True, **kw)
+
+
 def phase_itc(dev, n=20_000, dim=75, batch=5000, epochs=10, cpu_rows=256):
     """The ITC driver through the calls ``cli.main`` makes (DataModel,
     PredicateAlignModel, ``MultiKE_ITC.run``) at full width on the 20K
-    pair, cut to ``epochs`` epochs; returns the kernels' launches and the
-    phase's numbers."""
+    pair, cut to ``epochs`` epochs; returns the kernels' launches, the
+    phase's numbers and the DataModel."""
     import numpy as np
 
     from multike_tpu_torch.align.predicates import PredicateAlignModel
-    from multike_tpu_torch.config import Config
     from multike_tpu_torch.data.dataset import DataModel
     from multike_tpu_torch.eval import views
     from multike_tpu_torch.kernels import apply_kernel as ak
@@ -661,16 +821,7 @@ def phase_itc(dev, n=20_000, dim=75, batch=5000, epochs=10, cpu_rows=256):
     from multike_tpu_torch.persistence import EMBEDDING_FILES, ID_FILES
     from multike_tpu_torch.train.itc import MultiKE_ITC
 
-    folder = synthetic_pair(n)
-    out = os.path.join(REPO, "output", "chip_smoke", "itc") + "/"
-    cfg = Config(training_data=folder, output=out,
-                 word2vec_path=folder + "mini_word2vec.vec", dim=dim,
-                 batch_size=batch, entity_batch_size=batch,
-                 attribute_batch_size=batch, neg_triple_num=10,
-                 learning_rate=0.01, row_sparse_updates="on",
-                 encoder_epoch=5, max_epoch=epochs, truncated_freq=epochs // 2,
-                 start_predicate_soft_alignment=epochs // 2,
-                 start_valid=epochs, eval_freq=epochs, is_save=True)
+    cfg = driver_config(n, "itc", dim, batch, epochs)
     t0 = time.time()
     data = DataModel(cfg, verbose=True, device=dev)
     datamodel_s = time.time() - t0
@@ -734,15 +885,16 @@ def phase_itc(dev, n=20_000, dim=75, batch=5000, epochs=10, cpu_rows=256):
     check(set(results) == {"nv", "rv", "av", "final"}
           and all(np.isfinite(v) for v in results.values()),
           f"test MRRs {results}")
-    runs = sorted(glob.glob(os.path.join(out, "MultiKE_ITC", "*", "*")))
+    runs = sorted(glob.glob(os.path.join(cfg.output, "MultiKE_ITC", "*",
+                                         "*")))
     check(runs and set(os.listdir(runs[-1])) >= {
         f + ".npy" for f in EMBEDDING_FILES} | set(ID_FILES),
         "the saved embeddings are missing")
     cpu = check_itc_against_cpu(model, cpu_rows)
-    busy = profile_itc_epoch(model, epochs + 1,
-                             sum(r["seconds"] for r in recs
-                                 if r.get("epoch") == epochs
-                                 and r["stream"] in ITC_STREAMS) * 1e3)
+    busy = profile_driver_epoch(model, ITC_STREAMS, epochs + 1,
+                                sum(r["seconds"] for r in recs
+                                    if r.get("epoch") == epochs
+                                    and r["stream"] in ITC_STREAMS) * 1e3)
 
     numbers = dict(
         entities_per_kg=n, dim=dim, batch=batch, epochs=epochs,
@@ -757,13 +909,14 @@ def phase_itc(dev, n=20_000, dim=75, batch=5000, epochs=10, cpu_rows=256):
         valid_before=before, valid_after=after, test_mrr=results,
         launches=launches, card_vs_cpu=cpu, profiled_epoch=busy)
     log(f"[itc] {json.dumps(numbers)}")
-    return launches, numbers
+    return launches, numbers, data
 
 
-def profile_itc_epoch(model, epoch: int, epoch_ms: float):
-    """One more epoch of the 7 streams, as the driver runs them after the
-    soft-alignment start, under torch.profiler (``profile_epoch``);
-    ``epoch_ms`` is the unprofiled time of the run's last epoch."""
+def profile_driver_epoch(model, stream_methods, epoch: int, epoch_ms: float):
+    """One more epoch of the driver's streams (``stream_methods``: stream ->
+    trainer method), as the driver runs them after the soft-alignment
+    start, under torch.profiler (``profile_epoch``); ``epoch_ms`` is the
+    unprofiled time of the run's last epoch."""
     kgs, pam = model.kgs, model.predicate_align_model
     args = {
         "rel_view": (),
@@ -780,11 +933,52 @@ def profile_itc_epoch(model, epoch: int, epoch_ms: float):
     }
 
     def run_epoch():
-        for stream, meth in ITC_STREAMS.items():
+        for stream, meth in stream_methods.items():
             getattr(model, meth)(epoch, *args[stream])
 
     run_epoch()                    # uploads the lists this epoch builds
     return profile_epoch(run_epoch, epoch_ms)
+
+
+def _copy_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _copy_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev, copy=True)
+
+
+def step_on_card_and_cpu(model, stream, step, state, batch, constants=None,
+                         label=None, reads=(), tables=None):
+    """One injected step of ``stream`` from the trained tables (or
+    ``tables``) and ``state``, on the card and on the CPU (the kernels'
+    plain versions): the loss and every variable and state tensor must
+    agree to rtol 3e-5 / atol 1e-6. ``reads``: tables the step reads
+    without training them."""
+    import torch
+
+    from multike_tpu_torch.train import streams
+
+    names = streams.STREAM_VARS[stream] + tuple(reads)
+    tables = model.params if tables is None else tables
+    res = []
+    for dev in (model.device, torch.device("cpu")):
+        params = _copy_to({k: tables[k] for k in names}, dev)
+        st = _copy_to(state, dev)
+        lead = () if constants is None else (_copy_to(constants, dev),)
+        loss = step(params, st, *lead,
+                    *(None if x is None else x.to(dev) for x in batch))
+        res.append((float(loss), [t.cpu() for t in streams._leaves(
+            params) + streams._leaves(st)]))
+    (l_card, t_card), (l_cpu, t_cpu) = res
+    excess = max(float(((g - w).abs() - (1e-6 + 3e-5 * w.abs())).max())
+                 for g, w in zip(t_card, t_cpu) if g.is_floating_point())
+    check(all(torch.equal(g, w) for g, w in zip(t_card, t_cpu)
+              if not g.is_floating_point()),
+          f"{label or stream}: an integer state differs between card and CPU")
+    check(excess <= 0 and abs(l_card - l_cpu) <= 3e-5 * abs(l_cpu),
+          f"a {label or stream} step on the card differs from the CPU's: "
+          f"loss {l_card} vs {l_cpu}, worst excess over tolerance "
+          f"{excess:.3e}")
+    return {"loss_card": l_card, "loss_cpu": l_cpu, "worst_excess": excess}
 
 
 def check_itc_against_cpu(model, rows: int):
@@ -810,30 +1004,10 @@ def check_itc_against_cpu(model, rows: int):
     cases = {"attr_view": (attr.step, [x[0] for x in attr.draw(
                  gen, t1, f1, t2, f2)]),
              "common_space": (common.step, [ents[sel]])}
-    def copy_to(tree, dev):
-        if isinstance(tree, dict):
-            return {k: copy_to(v, dev) for k, v in tree.items()}
-        return tree.to(dev, copy=True)
-
-    worst = {}
-    for stream, (step, batch) in cases.items():
-        names = streams.STREAM_VARS[stream]
-        res = []
-        for dev in (model.device, torch.device("cpu")):
-            params = copy_to({k: model.params[k] for k in names}, dev)
-            acc = copy_to(model.opt_states[stream], dev)
-            loss = step(params, acc, copy_to(model.constants, dev),
-                        *(x.to(dev) for x in batch))
-            res.append((float(loss), [t.cpu() for t in streams._leaves(
-                params) + streams._leaves(acc)]))
-        (l_card, t_card), (l_cpu, t_cpu) = res
-        excess = max(float(((g - w).abs() - (1e-6 + 3e-5 * w.abs())).max())
-                     for g, w in zip(t_card, t_cpu))
-        check(excess <= 0 and abs(l_card - l_cpu) <= 3e-5 * abs(l_cpu),
-              f"a {stream} step on the card differs from the CPU's: loss "
-              f"{l_card} vs {l_cpu}, worst excess over tolerance {excess:.3e}")
-        worst[stream] = {"loss_card": l_card, "loss_cpu": l_cpu,
-                         "worst_excess": excess}
+    worst = {stream: step_on_card_and_cpu(
+                 model, stream, step, model.opt_states[stream], batch,
+                 constants=model.constants)
+             for stream, (step, batch) in cases.items()}
 
     model.generate_neighbors()
     kgs, k = model.kgs, min(model.k_nbr1, len(model.kgs.useful_entities_list1))
@@ -856,6 +1030,203 @@ def check_itc_against_cpu(model, rows: int):
         f"{differing} ties at the k-th score")
     return dict(steps=worst, neighbor_rows=rows, k=k,
                 neighbor_tie_swaps=differing)
+
+
+# The trainer's epoch method of each SSL stream.
+SSL_STREAMS = {**{k: v for k, v in ITC_STREAMS.items() if k != "common_space"},
+               "space_mapping": "train_shared_space_mapping_1epo"}
+SSL_EVALS = ("valid_metrics", "test", "valid_WVA", "test_WVA")
+
+
+def phase_ssl(dev, data, n=20_000, dim=75, batch=5000, epochs=10):
+    """The SSL driver through the calls ``cli.main`` makes (phase 6's
+    DataModel, a fresh PredicateAlignModel, ``MultiKE_SSL.run``) at full
+    width on the 20K pair: per-slot draws with Bloom "drop" rejection in
+    both phases, ``epochs`` epochs of phase 1 (refresh and soft-alignment
+    start half-way, one evaluation at the end) and ``epochs`` of phase 2
+    (one ``final`` valid). Returns the kernels' launches and the numbers."""
+    import numpy as np
+
+    from multike_tpu_torch.align.predicates import PredicateAlignModel
+    from multike_tpu_torch.eval import views
+    from multike_tpu_torch.kernels import apply_kernel as ak
+    from multike_tpu_torch.kernels import rank_kernel as rk
+    from multike_tpu_torch.persistence import EMBEDDING_FILES, ID_FILES
+    from multike_tpu_torch.train.ssl import MultiKE_SSL
+
+    cfg = driver_config(n, "ssl", dim, batch, epochs,
+                        shared_learning_max_epoch=epochs,
+                        neg_scheme="per_slot", truncated_neg_scheme="per_slot")
+    check(cfg.neg_rejection_tries > 0 and cfg.neg_reject_mode == "drop",
+          "phase 7 rejects true triples by Bloom drop")
+    t0 = time.time()
+    pam = PredicateAlignModel(data.kgs, cfg)
+    predicates_s = time.time() - t0
+    model = MultiKE_SSL(cfg, data, pam, verbose=True, device=dev)
+    check(model.triple_filter is not None, "no Bloom filter was built")
+    # phase 1 does not train `ent`, so `final` before the run is `final`
+    # before phase 2
+    before = {v: views.valid(model, v) for v in ("rv", "avg", "final")}
+    by_stream, by_eval = {}, {}
+    for stream, meth in SSL_STREAMS.items():
+        setattr(model, meth, _count_launches(getattr(model, meth), by_stream,
+                                             stream))
+    saved = {f: getattr(views, f) for f in SSL_EVALS}
+    for f in SSL_EVALS:
+        setattr(views, f, _count_launches(saved[f], by_eval, f))
+    try:
+        ak.launches = 0
+        rk.launches = 0
+        t0 = time.time()
+        results = model.run()
+        run_s = time.time() - t0
+        launches = {"fused_row_adagrad": ak.launches,
+                    "rank_count": rk.launches}
+    finally:
+        for f in SSL_EVALS:
+            setattr(views, f, saved[f])
+    after = {v: views.valid(model, v) for v in ("rv", "avg", "final")}
+    log(f"[ssl] {epochs} + {epochs} epochs in {run_s:.1f} s; valid MRR "
+        f"before -> after: " + ", ".join(
+            f"{v} {before[v]:.4f} -> {after[v]:.4f}" for v in before)
+        + f"; test MRR {results}")
+
+    recs = model.metrics.records
+    streams_s = {}
+    for stream in SSL_STREAMS:
+        rs = [r for r in recs if r.get("stream") == stream]
+        check(rs and all(np.isfinite(r["loss"]) for r in rs),
+              f"{stream}: no epoch or a loss that is not finite")
+        check(by_stream[stream]["fused_row_adagrad"] > 0,
+              f"K1 did not launch in {stream}")
+        secs = [r["seconds"] for r in rs]
+        streams_s[stream] = {"epochs": len(rs), "first_s": secs[0],
+                             "mean_later_s": float(np.mean(secs[1:]))
+                             if len(secs) > 1 else None,
+                             "k1_launches": by_stream[stream][
+                                 "fused_row_adagrad"]}
+    evals = sum(r["calls"] for r in by_eval.values())
+    check(launches["rank_count"] == evals > 0 and all(
+        r["rank_count"] == r["calls"] for r in by_eval.values()),
+        f"K2 launches {launches['rank_count']} for {evals} evaluations: "
+        f"{by_eval}")
+    check(by_eval["valid_WVA"]["calls"] == 1 and
+          by_eval["test_WVA"]["calls"] == 1, "WVA was not evaluated")
+    check(launches["fused_row_adagrad"] == sum(
+        r["fused_row_adagrad"] for r in by_stream.values()),
+        "K1 launched outside the streams")
+    rel = [r for r in recs if r.get("stream") == "rel_view"]
+    check(all(r["scheme"] == "per_slot" for r in rel)
+          and {r["truncated"] for r in rel} == {False, True},
+          "per-slot rel_view epochs must run before and after the refresh")
+    drops = {ph: [r["dropped_share"] for r in rel if r["truncated"] == tr]
+             for ph, tr in (("uniform", False), ("truncated", True))}
+    log(f"[ssl] Bloom drop share of rel_view slots: uniform "
+        f"{[round(x, 6) for x in drops['uniform']]}, truncated "
+        f"{[round(x, 6) for x in drops['truncated']]}")
+    check(all(after[v] > before[v] for v in after),
+          f"valid MRR did not rise: {before} -> {after}")
+    check(set(results) == {"nv", "rv", "av", "avg", "wva", "final"}
+          and all(np.isfinite(v) for v in results.values()),
+          f"test MRRs {results}")
+    runs = sorted(glob.glob(os.path.join(cfg.output, "MultiKE_SSL", "*",
+                                         "*")))
+    check(runs and set(os.listdir(runs[-1])) >= {
+        f + ".npy" for f in EMBEDDING_FILES} | set(ID_FILES),
+        "the saved embeddings are missing")
+    cpu = check_ssl_against_cpu(model)
+    phase1 = {k: v for k, v in SSL_STREAMS.items() if k != "space_mapping"}
+    busy = profile_driver_epoch(model, phase1, epochs + 1,
+                                sum(r["seconds"] for r in recs
+                                    if r.get("epoch") == epochs
+                                    and r["stream"] in phase1) * 1e3)
+    numbers = dict(
+        entities_per_kg=n, dim=dim, batch=batch, epochs=epochs,
+        shared_learning_epochs=epochs, predicates_s=predicates_s,
+        run_s=run_s, streams=streams_s,
+        neighbor_refresh_s=[r["seconds"] for r in recs
+                            if r.get("stream") == "neighbors"],
+        dropped_share=drops,
+        evals={k: {"calls": r["calls"], "k2_launches": r["rank_count"],
+                   "ms": [1e3 * x for x in r["seconds"]]}
+               for k, r in by_eval.items()},
+        valid_before=before, valid_after=after, test_mrr=results,
+        launches=launches, card_vs_cpu=cpu, profiled_epoch=busy)
+    log(f"[ssl] {json.dumps(numbers)}")
+    return launches, numbers
+
+
+def check_ssl_against_cpu(model, probes=1_000_000):
+    """From the trained state, on the card and on the CPU: the Bloom words
+    and membership on the true triples and ``probes`` random ones are
+    bit-equal; one truncated per-slot rel_view step with its keep mask, one
+    space_mapping step and one dense ckge_rel step each of Adam, Adadelta
+    and SGD agree to rtol 3e-5 / atol 1e-6. Each optimizer's step starts
+    from the state of three earlier steps on the card: from a fresh state
+    Adam's update is g / (|g| + 1e-8) per element, which turns the
+    summation-order noise of a near-zero gradient into most of a step of
+    lr, on either device."""
+    import numpy as np
+    import torch
+
+    from multike_tpu_torch.sampling import (build_triple_filter,
+                                            triple_filter_contains)
+    from multike_tpu_torch.train import optimizers, streams
+
+    cfg, gen, kgs = model.cfg, model.gen, model.kgs
+    true = torch.cat([model.rel_triples1, model.rel_triples2]).cpu()
+    host = build_triple_filter(true.numpy(), device="cpu")
+    card = model.triple_filter
+    check(torch.equal(card.bits.cpu(), host.bits),
+          "the Bloom words on the card differ from the CPU's")
+    rng = np.random.RandomState(5)
+    probe = torch.cat([true, torch.as_tensor(np.stack(
+        [rng.randint(0, kgs.entities_num, probes),
+         rng.randint(0, kgs.relations_num, probes),
+         rng.randint(0, kgs.entities_num, probes)], 1))])
+    got = triple_filter_contains(card, *probe.to(model.device).T).cpu()
+    want = triple_filter_contains(host, *probe.T)
+    check(torch.equal(got, want), "Bloom membership differs on the card")
+    check(bool(want[:len(true)].all()), "a true triple tested negative")
+    fp_rate = float(want[len(true):].float().mean())
+
+    steps = {}
+    rel, _, _ = streams.build_rel_view_epoch(
+        cfg, model.n_rel1, model.n_rel2, model.ranges, with_neighbors=True,
+        tfilter=card)
+    xs = [x[0] for x in rel.draw(gen, model.rel_triples1,
+                                 model.rel_triples2, model.neighbors)]
+    dropped = int((xs[4] == 0).sum() + (xs[9] == 0).sum())
+    steps["rel_view"] = step_on_card_and_cpu(
+        model, "rel_view", rel.step, model.opt_states["rel_view"], xs)
+    ents = model._cached_array("space_mapping_ents",
+                               kgs.kg1.entities_list + kgs.kg2.entities_list)
+    sm, _, _ = streams.build_space_mapping_epoch(cfg, len(ents))
+    sel = torch.randperm(len(ents), generator=gen, device=gen.device)[:sm.bs]
+    steps["space_mapping"] = step_on_card_and_cpu(
+        model, "space_mapping", sm.step, model.opt_states["space_mapping"],
+        [ents[sel]], constants=model.constants, reads=("rv_ent", "av_ent"))
+    sup = model._cached_array("ckge_rel", kgs.kg1.sup_relation_triples_list
+                              + kgs.kg2.sup_relation_triples_list)
+    for name in ("Adam", "Adadelta", "SGD"):
+        ocfg = cfg.replace(optimizer=name)
+        ep, _, _ = streams.build_ckge_rel_epoch(ocfg, len(sup))
+        tables = _copy_to({k: model.params[k] for k in
+                           streams.STREAM_VARS["ckge_rel"]}, model.device)
+        state = optimizers.init_state(name, tables)
+        sel = torch.randperm(len(sup), generator=gen,
+                             device=gen.device)[:ep.bs]
+        for _ in range(3):
+            ep.step(tables, state, sup[sel])
+        steps[name] = step_on_card_and_cpu(model, "ckge_rel", ep.step, state,
+                                           [sup[sel]], label=name,
+                                           tables=tables)
+    log(f"[ssl] card vs CPU: Bloom words and membership of "
+        f"{len(probe):,} triples bit-equal (false-positive rate "
+        f"{fp_rate:.2e}); steps agree ({steps}); the rel_view step's keep "
+        f"mask drops {dropped} slots")
+    return dict(bloom_probes=len(probe), bloom_fp_rate=fp_rate,
+                rel_view_dropped_slots=dropped, steps=steps)
 
 
 def main() -> int:
@@ -900,13 +1271,17 @@ def main() -> int:
     k2 = phase_rank(dev, peaks)
     main_launches = phase_main_path(dev)
     rate = phase_throughput(dev, card)
-    itc_launches, _ = phase_itc(dev)
+    parity = phase_parity(dev, card)
+    itc_launches, _, data = phase_itc(dev)
+    ssl_launches, _ = phase_ssl(dev, data)
 
     for k in (k1, k2):
-        k["launches"] = itc_launches[k["name"]]
-        k["launches_by_path"] = {"itc": itc_launches[k["name"]],
+        k["launches"] = ssl_launches[k["name"]]
+        k["launches_by_path"] = {"ssl": ssl_launches[k["name"]],
+                                 "itc": itc_launches[k["name"]],
                                  "rel_view": main_launches[k["name"]]}
     log(f"[rate] {json.dumps(rate)}")
+    log(f"[parity] {json.dumps(parity)}")
     log(f"[done] all phases passed in {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": [k1, k2]}), flush=True)
     print(card, flush=True)

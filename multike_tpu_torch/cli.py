@@ -1,11 +1,12 @@
-"""Command line: ``python -m multike_tpu_torch.cli -m ITC -d <data-folder>
-[--args args.json] [--device cpu]`` (counterpart of multike_tpu/cli.py).
+"""Command line: ``python -m multike_tpu_torch.cli -m {ITC,SSL} -d
+<data-folder> [--args args.json] [--device cpu]`` (counterpart of
+multike_tpu/cli.py).
 
 Loads a reference-format JSON config (``--args``), overrides
 ``training_data`` and any field given with ``--set KEY=VALUE``, builds the
-DataModel and the predicate-alignment model, then runs the mode's driver.
-It runs on the card unless ``--device`` names another device; without a
-card it stops rather than run on the CPU. The SSL mode is not ported yet.
+DataModel and the predicate-alignment model, then runs the mode's driver:
+``MultiKE_ITC`` or ``MultiKE_SSL``. It runs on the card unless ``--device``
+names another device; without a card it stops rather than run on the CPU.
 """
 from __future__ import annotations
 
@@ -30,10 +31,6 @@ def main(argv=None):
     ap.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
                     help="override any Config field, e.g. --set dim=32")
     ns = ap.parse_args(argv)
-    if ns.mode == "SSL":
-        raise NotImplementedError(
-            "the SSL driver (space_mapping and WVA) arrives in a later slice "
-            "of the port")
     device = resolve_device(ns.device)
 
     cfg = load_config(ns.args) if ns.args and os.path.exists(ns.args) \
@@ -63,11 +60,15 @@ def main(argv=None):
 
     from multike_tpu_torch.align.predicates import PredicateAlignModel
     from multike_tpu_torch.data.dataset import DataModel
-    from multike_tpu_torch.train.itc import MultiKE_ITC
+
+    if ns.mode == "ITC":
+        from multike_tpu_torch.train.itc import MultiKE_ITC as Model
+    else:
+        from multike_tpu_torch.train.ssl import MultiKE_SSL as Model
 
     data = DataModel(cfg, verbose=True, device=device)
     pam = PredicateAlignModel(data.kgs, cfg)
-    model = MultiKE_ITC(cfg, data, pam, device=device)
+    model = Model(cfg, data, pam, device=device)
     results = model.run()
     print("final test MRRs:", results)
     return results

@@ -2,8 +2,8 @@
 
 Every field of the reference ``Config`` is kept, with the same default, so
 one ``args.json`` loads into either package. Fields that only choose between
-TPU implementations are accepted and documented as such; fields that belong
-to parts not yet ported are accepted and read by nothing yet.
+TPU implementations are accepted and documented as such; the mesh fields,
+whose multi-GPU part is not ported yet, raise above 1.
 
 Reference quirk preserved: ``encoder_active`` defaults to ``"thah"`` (the
 reference's typo, which makes its literal autoencoder linear).
@@ -48,26 +48,27 @@ class Config:
     # --- negative sampling ---
     neg_triple_num: int = 10
     neg_sampling: str = "truncated"
-    # per_slot exact rejection (Bloom filter): max resample rounds, and
-    # whether an offending slot is dropped or redrawn. per_slot sampling is
-    # not ported yet.
+    # per_slot exact rejection (Bloom filter over the true triples; built
+    # when this is > 0 or chunk_exact_rejection is on): max resample rounds,
+    # and whether an offending slot is dropped ("drop", one Bloom pass, the
+    # slot leaves the loss) or redrawn ("resample", up to
+    # neg_rejection_tries rounds, each ending in a host sync).
     neg_rejection_tries: int = 10
     neg_reject_mode: str = "drop"
     # Zero-mask (positive, pool-candidate) pairs that are true triples in the
-    # chunk_shared scheme. Not ported yet: True raises in the rel_view epoch.
+    # chunk_shared scheme (O(batch * 2C) Bloom tests a step).
     chunk_exact_rejection: bool = False
     truncated_epsilon: float = 0.98
     truncated_freq: int = 20
     # "chunk_shared": chunks of positives share head- and tail-corruption
     # candidate pools, so negative scoring is a batched matmul and the
     # gradient touches O(chunks * pool) candidate rows instead of O(B * K).
-    # "per_slot": reference-exact iid candidate per negative slot (not
-    # ported yet).
+    # "per_slot": reference-exact iid candidate per negative slot.
     neg_scheme: str = "chunk_shared"
     neg_chunk_size: int = 4096
     # Negative scheme, chunk size and pool size C of the neighbor-truncated
     # phase (epochs after the first neighbor refresh); 0 pool = the
-    # uniform phase's. Only "chunk_shared" is ported.
+    # uniform phase's.
     truncated_neg_scheme: str = "chunk_shared"
     truncated_chunk_size: int = 4096
     truncated_pool_size: int = 128
@@ -118,7 +119,8 @@ class Config:
     eval_matmul_dtype: str = "float32"
     # TPU only: recall target of approx_max_k in the neighbor refresh.
     neighbor_recall_target: float = 0.85
-    # TPU only: persistent XLA compilation cache directory.
+    # TPU only: persistent XLA compilation cache directory; accepted and
+    # ignored here (utils/misc.py).
     compile_cache_dir: str = ""
     checkpoint_dir: str = ""
     checkpoint_freq: int = 0

@@ -61,6 +61,14 @@ def csls_sim(sim_mat: np.ndarray, k: int) -> np.ndarray:
     return (out.T - nearest2).astype(np.float32)
 
 
+def csls_sim_multi_threads(sim_mat: np.ndarray, k: int,
+                           nums_threads: int = 1) -> np.ndarray:
+    """The reference helper's signature: the row means of the k largest
+    entries (its only output), computed vectorized, so ``nums_threads`` is
+    accepted and unused."""
+    return calculate_nearest_k(sim_mat, k)
+
+
 def csls_penalties_blockwise(e1: torch.Tensor, e2: torch.Tensor, k: int,
                              col_block: int = 8192):
     """(r1, r2): row and column mean-top-k terms of ``e1 @ e2.T``, computed

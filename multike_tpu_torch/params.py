@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from multike_tpu_torch.config import Config
+from multike_tpu_torch.train.optimizers import state_from_optax
 from multike_tpu_torch.utils.device import resolve_device
 
 EPS_L2 = 1e-12  # tf.nn.l2_normalize epsilon
@@ -105,7 +106,10 @@ def init_params(cfg: Config, entities_num: int, relations_num: int,
 def _tree_to_tensors(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to_tensors(v, device) for k, v in tree.items()}
-    return torch.tensor(np.asarray(tree, np.float32), device=device)
+    arr = np.asarray(tree)
+    if not np.issubdtype(arr.dtype, np.integer):
+        arr = arr.astype(np.float32)
+    return torch.tensor(arr, device=device)
 
 
 def params_from_reference(np_params: Dict, device=None) -> Dict:
@@ -115,9 +119,14 @@ def params_from_reference(np_params: Dict, device=None) -> Dict:
 
 
 def opt_states_from_reference(np_states: Dict, device=None) -> Dict:
-    """Adagrad accumulator dicts ({stream: {var: acc}}) of the JAX package
-    as tensors."""
-    return _tree_to_tensors(np_states, resolve_device(device))
+    """The JAX package's per-stream optimizer states, as numpy, as this
+    package's tensors: Adagrad accumulator dicts ({stream: {var: acc}})
+    as they are, and optax states of Adam, Adadelta or SGD (tuples of
+    NamedTuple states) as the slot dicts of ``train/optimizers.py``; an
+    Adam ``count`` stays int32."""
+    return _tree_to_tensors(
+        {stream: state_from_optax(st) if isinstance(st, tuple) else st
+         for stream, st in np_states.items()}, resolve_device(device))
 
 
 def lookup_norm(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

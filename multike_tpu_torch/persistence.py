@@ -6,13 +6,20 @@ embedding dumps and six id-dict TSVs in ``<output>/<ClassName>/<dataset>/
 <timestamp>/``.
 
 Checkpoints are one ``.npz`` in the JAX package's key layout: every table
-under ``params:<path>`` and every accumulator under ``opt:<stream>/<table>``,
-a path being the ``['key']`` parts joined by ``/``, as
-``jax.tree_util.tree_flatten_with_path`` names them. So a checkpoint the JAX
-package wrote loads here, and the reverse. The JAX package's PRNG key does
-not carry over: the port stores ``[seed, epoch]`` in its place and, on
-resume, reseeds its ``torch.Generator`` from the config's seed and the
-epoch (:func:`resume_seed`).
+under ``params:<path>`` and every Adagrad accumulator under
+``opt:<stream>/<table>``, a path being the ``['key']`` parts joined by
+``/``, as ``jax.tree_util.tree_flatten_with_path`` names them. The slots of
+Adam and Adadelta states take the places optax's chain states flatten to
+(``opt:<stream>/[0]/.count``, ``opt:<stream>/[0]/.mu/['rv_ent']``,
+``opt:<stream>/[1]/.e_g/...``; ``train/optimizers.OPTAX_SLOT_PATHS``); SGD
+has none. So a checkpoint the JAX package wrote loads here, and the
+reverse. The JAX package's PRNG key does not carry over: the port stores
+``[seed, epoch]`` in its place and, on resume, reseeds its
+``torch.Generator`` from the config's seed and the epoch
+(:func:`resume_seed`).
+
+``load_embeddings``, ``pair2file``, ``line2file``, ``radio_2file`` and
+``save_results`` keep the reference's small file helpers.
 """
 from __future__ import annotations
 
@@ -21,6 +28,44 @@ import time
 
 import numpy as np
 import torch
+
+from multike_tpu_torch.train.optimizers import OPTAX_SLOT_PATHS
+
+
+def load_embeddings(file_name: str):
+    """The array saved in ``file_name``, or None when there is no file."""
+    if os.path.exists(file_name):
+        return np.load(file_name)
+    return None
+
+
+def pair2file(file: str, pairs) -> None:
+    if pairs is None:
+        return
+    with open(file, "w", encoding="utf8") as f:
+        for i, j in pairs:
+            f.write(f"{i}\t{j}\n")
+
+
+def line2file(file: str, lines) -> None:
+    if lines is None:
+        return
+    with open(file, "w", encoding="utf8") as f:
+        for line in lines:
+            f.write(line + "\n")
+
+
+def radio_2file(radio, folder: str) -> str:
+    """The split-ratio subfolder of ``folder`` ('.' -> '_'), created."""
+    path = folder + str(radio).replace(".", "_")
+    os.makedirs(path, exist_ok=True)
+    return path + "/"
+
+
+def save_results(folder: str, rest_12) -> None:
+    os.makedirs(folder, exist_ok=True)
+    pair2file(os.path.join(folder, "alignment_results_12"), rest_12)
+    print("Results saved!")
 
 
 def dict2file(file: str, dic) -> None:
@@ -66,13 +111,15 @@ def save_embeddings(folder: str, kgs, ent_embeds, nv_ent_embeds,
 # ---------------------------------------------------------------------------
 
 def _flat_paths(tree, prefix: str, path=()):
-    """{key: tensor} over the leaves of a nested dict of tensors."""
+    """{key: tensor} over the leaves of a nested dict of tensors; an
+    optimizer slot ('count', 'mu', ...) is named by its optax path."""
     if isinstance(tree, dict):
         out = {}
         for k in sorted(tree):
             out.update(_flat_paths(tree[k], prefix, path + (k,)))
         return out
-    return {prefix + "/".join(f"['{p}']" for p in path): tree}
+    return {prefix + "/".join(OPTAX_SLOT_PATHS.get(p, f"['{p}']")
+                              for p in path): tree}
 
 
 def resume_seed(seed: int, epoch: int) -> int:

@@ -1,15 +1,15 @@
 """Per-loss training streams (counterpart of multike_tpu/train/streams.py).
 
-The seven streams of the ITC driver are ported: the relation view
-(``rel_view``, chunk-shared negatives in the uniform phase and, after the
-first neighbor refresh, in the truncated phase), the attribute view
-(``attr_view``), the cross-KG inference streams (``ckge_rel``,
-``ckgp_rel``, ``ckge_attr``, ``ckga_attr``) and the ITC combination
-(``common_space``). ``space_mapping`` (the SSL driver), per-slot sampling
-and the non-Adagrad optimizers are not ported yet and raise.
+All eight streams are ported: the relation view (``rel_view``, in the
+uniform phase and, after the first neighbor refresh, in the truncated
+phase, with chunk-shared pools or per-slot draws, and optional Bloom
+rejection of true triples), the attribute view (``attr_view``), the
+cross-KG inference streams (``ckge_rel``, ``ckgp_rel``, ``ckge_attr``,
+``ckga_attr``), the ITC combination (``common_space``) and the SSL
+combination (``space_mapping``).
 
-Each epoch draws its indices (and the rel_view pools) up front, then runs
-one public step function per batch, so the tests can hold a step with
+Each epoch draws its indices (and the rel_view negatives) up front, then
+runs one public step function per batch, so the tests can hold a step with
 injected inputs against a step composed from the JAX package.
 
 Each stream is written as ``(prep, loss_fn)``: ``prep`` builds the row-id
@@ -19,7 +19,9 @@ on either of two same-math paths:
   * row-sparse Adagrad (train/sparse_adagrad.py): gradients are taken with
     respect to the gathered rows and applied to those rows only, one K1
     launch per row table;
-  * dense Adagrad: gradients flow through the gather to the full tables.
+  * dense: gradients flow through the gather to the full tables, then
+    dense Adagrad, or Adam, Adadelta or SGD (train/optimizers.py), which
+    always take this path, as in the JAX package.
 
 Parameters and accumulators are updated in place. Unlike the JAX package,
 the sampled streams draw from their lists' true length: there are no
@@ -48,13 +50,17 @@ import torch.nn.functional as F
 from multike_tpu_torch.config import Config
 from multike_tpu_torch.losses import (alignment_loss,
                                       chunk_shared_relation_logistic_loss,
+                                      lean_relation_logistic_loss,
                                       logistic_loss_wo_negs,
                                       positive_logistic_from_scores,
-                                      relation_logistic_loss_wo_negs)
+                                      relation_logistic_loss_wo_negs,
+                                      space_mapping_loss)
 from multike_tpu_torch.params import l2_normalize, lookup_norm_fast
-from multike_tpu_torch.sampling import (sample_shared_corruptions,
-                                        sample_shared_neighbor_corruptions)
-from multike_tpu_torch.train import sparse_adagrad
+from multike_tpu_torch.sampling import (TripleFilter, sample_corruptions,
+                                        sample_shared_corruptions,
+                                        sample_shared_neighbor_corruptions,
+                                        triple_filter_contains)
+from multike_tpu_torch.train import optimizers, sparse_adagrad
 from multike_tpu_torch.views.attr_conv import conv_score
 
 STREAM_SPEC: Dict[str, Tuple[Tuple[str, ...], Tuple[str, ...]]] = {
@@ -75,8 +81,6 @@ STREAM_VARS: Dict[str, Tuple[str, ...]] = {
 # JAX package's fallback for device kinds it has no measurement for; no
 # crossover has been measured on the card yet.
 ROW_SPARSE_THRESHOLDS = (150_000, 0.25)
-
-_LATER = "arrives in a later slice of the port"
 
 
 def use_row_sparse(cfg: Config, table_rows: int,
@@ -102,18 +106,17 @@ def stream_lr(cfg: Config, stream: str) -> float:
         else cfg.learning_rate
 
 
-def _require_adagrad(cfg: Config):
-    if cfg.optimizer != "Adagrad":
-        raise NotImplementedError(
-            f"optimizer {cfg.optimizer!r}: only Adagrad is ported; the other "
-            f"optimizers {_LATER}")
-
-
 def init_stream_opt_states(cfg: Config, params) -> Dict:
-    """Per-stream Adagrad accumulator dicts (format-compatible with both the
-    row-sparse and the dense apply)."""
-    _require_adagrad(cfg)
-    return {stream: {k: sparse_adagrad.init_acc(params[k]) for k in names}
+    """Per-stream optimizer states: Adagrad accumulator dicts
+    (format-compatible with both the row-sparse and the dense apply), or
+    the Adam / Adadelta / SGD states of ``train/optimizers.py`` over the
+    stream's variables."""
+    if cfg.optimizer == "Adagrad":
+        return {stream: {k: sparse_adagrad.init_acc(params[k])
+                         for k in names}
+                for stream, names in STREAM_VARS.items()}
+    return {stream: optimizers.init_state(cfg.optimizer,
+                                          {k: params[k] for k in names})
             for stream, names in STREAM_VARS.items()}
 
 
@@ -137,7 +140,8 @@ def _grad_leaf(tree):
     return tree.detach().requires_grad_()
 
 
-def _make_stream_update(cfg: Config, stream: str, prep, loss_fn):
+def _make_stream_update(cfg: Config, stream: str, prep, loss_fn,
+                        frozen: Tuple[str, ...] = ()):
     """Build ``update(params, opt_state, *batch) -> loss`` (a detached
     0-dim tensor); ``params`` and ``opt_state`` are updated in place.
 
@@ -145,14 +149,21 @@ def _make_stream_update(cfg: Config, stream: str, prep, loss_fn):
     to its (N,) id vector.
     ``loss_fn(rows, dense, aux, *batch) -> loss``: ``rows[t]`` are the RAW
     gathered rows ``table[ids[t]]``, ``dense[k]`` the full small tables
-    (a nested dict for a conv scorer)."""
-    _require_adagrad(cfg)
+    (a nested dict for a conv scorer).
+    ``frozen``: tables the loss reads without training them (the JAX
+    package's ``stopped`` reads). The loss then gets, in place of prep's
+    ``aux``, their RAW rows at the first row table's ids, without
+    gradient: ``aux[t]``."""
     row_tables, dense_names = STREAM_SPEC[stream]
     names = row_tables + dense_names
     lr = stream_lr(cfg, stream)
+    adagrad = cfg.optimizer == "Adagrad"
 
     def update(params, opt_state, *batch):
         ids, aux = prep(*batch)
+        if frozen:
+            with torch.no_grad():
+                aux = {t: params[t][ids[row_tables[0]]] for t in frozen}
         sparse = use_row_sparse(cfg, params[row_tables[0]].shape[0],
                                 ids_count=ids[row_tables[0]].shape[0])
         if sparse:
@@ -176,11 +187,16 @@ def _make_stream_update(cfg: Config, stream: str, prep, loss_fn):
         rows = {t: leaves[t][ids[t]] for t in row_tables}
         dense = {k: leaves[k] for k in dense_names}
         loss = loss_fn(rows, dense, aux, *batch)
-        grads = iter(torch.autograd.grad(loss, _leaves(leaves)))
+        grads = _rebuild(leaves, iter(torch.autograd.grad(
+            loss, _leaves(leaves))))
         with torch.no_grad():
-            for k in names:
-                sparse_adagrad.dense_apply(params[k], opt_state[k],
-                                           _rebuild(leaves[k], grads), lr)
+            if adagrad:
+                for k in names:
+                    sparse_adagrad.dense_apply(params[k], opt_state[k],
+                                               grads[k], lr)
+            else:
+                optimizers.apply(cfg.optimizer, {k: params[k] for k in names},
+                                 opt_state, grads, lr)
         return loss.detach()
 
     return update
@@ -247,6 +263,10 @@ class RelViewEpoch:
     (sampling.sample_shared_neighbor_corruptions), with chunks of
     ``truncated_chunk_size`` and C = ``truncated_pool_size``.
 
+    With a Bloom filter and ``chunk_exact_rejection``, each step masks out
+    the (positive, pool candidate) pairs that test positive as true triples
+    (:meth:`chunk_keep_masks`).
+
     All entity-row reads of a step (both KGs' heads, tails and pools) go
     through ONE gather, so on the row-sparse path the step's gradient is ONE
     (ids, row-gradient) pair for one fused apply.
@@ -256,11 +276,16 @@ class RelViewEpoch:
     ct1, pos2, m2, ch2, ct2) -> loss`` is one batch with injected positives
     (bsp, 3), masks (bsp,) and pools (nc, C)."""
 
+    scheme = "chunk_shared"
+    dropped = None            # no per-slot drop count in this scheme
+
     def __init__(self, cfg: Config, n1: int, n2: int,
                  ranges: Tuple[Tuple[int, int], Tuple[int, int]],
-                 with_neighbors: bool = False):
+                 with_neighbors: bool = False,
+                 tfilter: TripleFilter | None = None):
         self.n1, self.n2, self.ranges = n1, n2, ranges
         self.with_neighbors = with_neighbors
+        self.tfilter = tfilter if cfg.chunk_exact_rejection else None
         self.steps = int(np.ceil((n1 + n2) / cfg.batch_size))
         self.bs1, self.bs2 = proportional_sizes(n1, n2, cfg.batch_size)
         self.pool = cfg.neg_pool_size or cfg.neg_triple_num
@@ -280,10 +305,25 @@ class RelViewEpoch:
         self._update = _make_stream_update(cfg, "rel_view", self._prep,
                                            self._loss)
 
+    def chunk_keep_masks(self, pos, ch, ct, nc, s):
+        """Bloom keep masks of one KG's two pools, each (nc, s, C):
+        ``keep_h[c, i, j]`` is 0 iff (ch[c, j], r_i, t_i) tests positive,
+        ``keep_t[c, i, j]`` is 0 iff (h_i, r_i, ct[c, j]) does; (None, None)
+        without exact rejection."""
+        if self.tfilter is None:
+            return None, None
+        h, r, t = (pos[:, k].reshape(nc, s, 1) for k in range(3))
+        bad_h = triple_filter_contains(self.tfilter, ch[:, None, :], r, t)
+        bad_t = triple_filter_contains(self.tfilter, h, r, ct[:, None, :])
+        return (1.0 - bad_h.to(torch.float32),
+                1.0 - bad_t.to(torch.float32))
+
     def _prep(self, pos1, m1, ch1, ct1, pos2, m2, ch2, ct2):
         parts = [pos1[:, 0], pos1[:, 2], ch1.reshape(-1), ct1.reshape(-1),
                  pos2[:, 0], pos2[:, 2], ch2.reshape(-1), ct2.reshape(-1)]
-        return {"rv_ent": torch.cat(parts)}, None
+        keep = (self.chunk_keep_masks(pos1, ch1, ct1, self.nc1, self.s1),
+                self.chunk_keep_masks(pos2, ch2, ct2, self.nc2, self.s2))
+        return {"rv_ent": torch.cat(parts)}, keep
 
     def _loss(self, rows, dense, aux, pos1, m1, ch1, ct1, pos2, m2, ch2, ct2):
         rv_rows = l2_normalize(rows["rv_ent"], axis=-1)
@@ -294,15 +334,17 @@ class RelViewEpoch:
         ph1, pt1, ch1r, ct1r, ph2, pt2, ch2r, ct2r = _split(rv_rows,
                                                             self.sizes)
         loss = torch.zeros((), dtype=rv_rows.dtype, device=rv_rows.device)
-        for bs, nc, s, ph, pr, pt, chr_, ctr, m in (
-                (self.bs1, self.nc1, self.s1, ph1, prs1, pt1, ch1r, ct1r, m1),
-                (self.bs2, self.nc2, self.s2, ph2, prs2, pt2, ch2r, ct2r, m2)):
+        for bs, nc, s, ph, pr, pt, chr_, ctr, m, (keep_h, keep_t) in (
+                (self.bs1, self.nc1, self.s1, ph1, prs1, pt1, ch1r, ct1r, m1,
+                 aux[0]),
+                (self.bs2, self.nc2, self.s2, ph2, prs2, pt2, ch2r, ct2r, m2,
+                 aux[1])):
             if bs > 0:
                 loss = loss + chunk_shared_relation_logistic_loss(
                     ph.reshape(nc, s, dim), pr.reshape(nc, s, dim),
                     pt.reshape(nc, s, dim), chr_.reshape(nc, self.pool, dim),
                     ctr.reshape(nc, self.pool, dim), neg_weight=self.neg_w,
-                    pos_mask=m.reshape(nc, s))
+                    pos_mask=m.reshape(nc, s), keep_h=keep_h, keep_t=keep_t)
         return loss
 
     def step(self, params, opt_state, pos1, m1, ch1, ct1, pos2, m2, ch2, ct2):
@@ -350,26 +392,168 @@ class RelViewEpoch:
         return total
 
 
+class PerSlotRelViewEpoch:
+    """Relation-view TransE epoch with per-slot negatives, the reference's
+    regime: every positive has ``neg_triple_num`` slots, each flipping its
+    own head-or-tail coin and drawing its own candidate from the KG's id
+    range or, in the truncated phase, from the corrupted entity's neighbor
+    row (sampling.sample_corruptions). The loss is
+    ``losses.lean_relation_logistic_loss``: negatives reuse the positive
+    rows for the uncorrupted side, so a step gathers B * (2 + K) rows.
+
+    With a Bloom filter (``tfilter``), true triples are rejected as the JAX
+    package does. The whole epoch's draws are presampled in one pass unless
+    ``neg_reject_mode == "resample"`` and ``neg_rejection_tries > 0``; the
+    presampled pass always uses "drop" (a keep mask of 0.0 on the slots
+    that test positive), whatever ``neg_reject_mode`` says. Otherwise every
+    step draws its own candidates and redraws the positives in up to
+    ``neg_rejection_tries`` rounds, each with a host sync.
+
+    ``epoch(params, opt_state, gen, triples1, triples2, neighbors=None) ->
+    loss sum`` trains in place; ``step(params, opt_state, pos1, m1, cand1,
+    hb1, keep1, pos2, m2, cand2, hb2, keep2) -> loss`` is one batch with
+    injected positives (bs, 3), masks (bs,), candidates (bs, K),
+    corrupt-head coins (bs, K) and keep masks (bs, K) or None. After each
+    epoch, ``dropped`` holds the count of real slots the filter dropped
+    (a device scalar; None without "drop" rejection) out of ``slots``."""
+
+    scheme = "per_slot"
+
+    def __init__(self, cfg: Config, n1: int, n2: int,
+                 ranges: Tuple[Tuple[int, int], Tuple[int, int]],
+                 with_neighbors: bool = False,
+                 tfilter: TripleFilter | None = None):
+        self.n1, self.n2, self.ranges = n1, n2, ranges
+        self.with_neighbors = with_neighbors
+        self.tfilter = tfilter
+        self.neg_num = cfg.neg_triple_num
+        self.retries = cfg.neg_rejection_tries
+        self.reject_mode = cfg.neg_reject_mode
+        self.steps = int(np.ceil((n1 + n2) / cfg.batch_size))
+        self.bs1, self.bs2 = proportional_sizes(n1, n2, cfg.batch_size)
+        self.sizes = [self.bs1, self.bs1, self.bs1 * self.neg_num,
+                      self.bs2, self.bs2, self.bs2 * self.neg_num]
+        self.trained_per_epoch = min(n1, self.steps * self.bs1) + \
+            min(n2, self.steps * self.bs2)
+        self.slots = self.trained_per_epoch * self.neg_num
+        self.presample = (tfilter is None or self.retries == 0
+                          or self.reject_mode == "drop")
+        self.dropped = None
+        self._update = _make_stream_update(cfg, "rel_view", self._prep,
+                                           self._loss)
+
+    def _prep(self, pos1, m1, cand1, hb1, keep1, pos2, m2, cand2, hb2,
+              keep2):
+        parts = [pos1[:, 0], pos1[:, 2], cand1.reshape(-1),
+                 pos2[:, 0], pos2[:, 2], cand2.reshape(-1)]
+        return {"rv_ent": torch.cat(parts)}, None
+
+    def _loss(self, rows, dense, aux, pos1, m1, cand1, hb1, keep1, pos2, m2,
+              cand2, hb2, keep2):
+        rv_rows = l2_normalize(rows["rv_ent"], axis=-1)
+        dim = rv_rows.shape[-1]
+        prs_all = lookup_norm_fast(dense["rel"],
+                                   torch.cat([pos1[:, 1], pos2[:, 1]]))
+        prs1, prs2 = prs_all[:pos1.shape[0]], prs_all[pos1.shape[0]:]
+        ph1, pt1, c1, ph2, pt2, c2 = _split(rv_rows, self.sizes)
+        loss = torch.zeros((), dtype=rv_rows.dtype, device=rv_rows.device)
+        for bs, ph, pr, pt, c, hb, keep, m in (
+                (self.bs1, ph1, prs1, pt1, c1, hb1, keep1, m1),
+                (self.bs2, ph2, prs2, pt2, c2, hb2, keep2, m2)):
+            if bs > 0:
+                loss = loss + lean_relation_logistic_loss(
+                    ph, pr, pt, c.reshape(bs, self.neg_num, dim), hb, m,
+                    neg_keep=keep)
+        return loss
+
+    def step(self, params, opt_state, pos1, m1, cand1, hb1, keep1, pos2, m2,
+             cand2, hb2, keep2):
+        return self._update(params, opt_state, pos1, m1, cand1, hb1, keep1,
+                            pos2, m2, cand2, hb2, keep2)
+
+    def _positives(self, gen, triples1, triples2, neighbors):
+        if self.with_neighbors and neighbors is None:
+            raise ValueError("the truncated phase needs a NeighborState")
+        idx1, m1 = _padded_epoch_indices(gen, self.n1, self.bs1, self.bs1,
+                                         self.steps)
+        idx2, m2 = _padded_epoch_indices(gen, self.n2, self.bs2, self.bs2,
+                                         self.steps)
+        return triples1[idx1], m1, triples2[idx2], m2
+
+    def _corrupt(self, gen, pos, lo, hi, neighbors, mode):
+        cand, hb, keep = sample_corruptions(
+            gen, pos.reshape(-1, 3), lo, hi, self.neg_num,
+            neighbors if self.with_neighbors else None, tfilter=self.tfilter,
+            retries=self.retries, reject_mode=mode)
+        shape = pos.shape[:-1] + (self.neg_num,)
+        return (cand.reshape(shape), hb.reshape(shape),
+                None if keep is None else keep.reshape(shape))
+
+    def draw(self, gen: torch.Generator, triples1, triples2, neighbors=None):
+        """Every step's inputs for one presampled epoch, each stacked over
+        steps: positives, masks, candidates, coins and keep masks of each
+        KG (all-ones keep masks without a filter)."""
+        mode = "drop" if self.tfilter is not None else "resample"
+        pos1, m1, pos2, m2 = self._positives(gen, triples1, triples2,
+                                             neighbors)
+        (lo1, hi1), (lo2, hi2) = self.ranges
+        out = []
+        self.dropped = None
+        for pos, m, lo, hi in ((pos1, m1, lo1, hi1), (pos2, m2, lo2, hi2)):
+            cand, hb, keep = self._corrupt(gen, pos, lo, hi, neighbors, mode)
+            if keep is None:
+                keep = torch.ones(cand.shape, dtype=torch.float32,
+                                  device=cand.device)
+            else:
+                drop = ((1.0 - keep) * m[..., None]).sum()
+                self.dropped = drop if self.dropped is None \
+                    else self.dropped + drop
+            out += [pos, m, cand, hb, keep]
+        return tuple(out)
+
+    def __call__(self, params, opt_state, gen: torch.Generator, triples1,
+                 triples2, neighbors=None):
+        total = torch.zeros((), dtype=torch.float32, device=gen.device)
+        if self.presample:
+            xs = self.draw(gen, triples1, triples2, neighbors)
+            for i in range(self.steps):
+                total += self.step(params, opt_state, *(x[i] for x in xs))
+            return total
+        # in-step resampling: each step draws, then redraws its offenders
+        self.dropped = None
+        pos1, m1, pos2, m2 = self._positives(gen, triples1, triples2,
+                                             neighbors)
+        (lo1, hi1), (lo2, hi2) = self.ranges
+        for i in range(self.steps):
+            c1 = self._corrupt(gen, pos1[i], lo1, hi1, neighbors, "resample")
+            c2 = self._corrupt(gen, pos2[i], lo2, hi2, neighbors, "resample")
+            total += self.step(params, opt_state, pos1[i], m1[i], *c1,
+                               pos2[i], m2[i], *c2)
+        return total
+
+
 def build_rel_view_epoch(cfg: Config, n1: int, n2: int,
                          ranges: Tuple[Tuple[int, int], Tuple[int, int]],
-                         with_neighbors: bool = False):
+                         with_neighbors: bool = False,
+                         tfilter: TripleFilter | None = None):
     """Relation-view epoch, uniform phase or (``with_neighbors``) truncated
-    phase. Returns ``(epoch, steps, trained_per_epoch)``; ``epoch`` is a
-    :class:`RelViewEpoch`."""
+    phase, in the phase's scheme (``neg_scheme`` / ``truncated_neg_scheme``).
+    ``tfilter``: the Bloom filter of the true triples, read by per-slot
+    rejection and by ``chunk_exact_rejection``. Returns ``(epoch, steps,
+    trained_per_epoch)``; ``epoch`` is a :class:`RelViewEpoch` or a
+    :class:`PerSlotRelViewEpoch`."""
     if cfg.truncated_neg_scheme not in ("per_slot", "chunk_shared"):
         raise ValueError(f"truncated_neg_scheme must be 'per_slot' or "
                          f"'chunk_shared', got {cfg.truncated_neg_scheme!r}")
     if cfg.neg_scheme not in ("per_slot", "chunk_shared"):
         raise ValueError(f"neg_scheme must be 'per_slot' or 'chunk_shared', "
                          f"got {cfg.neg_scheme!r}")
+    if cfg.neg_reject_mode not in ("drop", "resample"):
+        raise ValueError(f"neg_reject_mode must be 'drop' or 'resample', "
+                         f"got {cfg.neg_reject_mode!r}")
     scheme = cfg.truncated_neg_scheme if with_neighbors else cfg.neg_scheme
-    if scheme == "per_slot":
-        raise NotImplementedError(
-            f"per-slot sampling {_LATER} (with the Bloom TripleFilter)")
-    if cfg.chunk_exact_rejection:
-        raise NotImplementedError(
-            f"chunk_exact_rejection {_LATER} (the Bloom TripleFilter)")
-    epoch = RelViewEpoch(cfg, n1, n2, ranges, with_neighbors)
+    cls = PerSlotRelViewEpoch if scheme == "per_slot" else RelViewEpoch
+    epoch = cls(cfg, n1, n2, ranges, with_neighbors, tfilter)
     return epoch, epoch.steps, epoch.trained_per_epoch
 
 
@@ -446,12 +630,12 @@ class SampledEpoch:
     loss`` is one injected batch (each data array sliced alike)."""
 
     def __init__(self, cfg: Config, stream: str, n: int, batch_size: int,
-                 prep, loss_fn):
+                 prep, loss_fn, frozen: Tuple[str, ...] = ()):
         self.n = n
         self.steps = max(1, int(np.ceil(n / batch_size)))
         self.bs = batch_size if self.steps > 1 else n
         self.trained_per_epoch = self.steps * self.bs
-        self.step = _make_stream_update(cfg, stream, prep, loss_fn)
+        self.step = _make_stream_update(cfg, stream, prep, loss_fn, frozen)
 
     def __call__(self, params, opt_state, gen: torch.Generator, *data,
                  constants=None):
@@ -466,8 +650,8 @@ class SampledEpoch:
 
 
 def _sampled(cfg: Config, stream: str, n: int, batch_size: int, prep,
-             loss_fn):
-    epoch = SampledEpoch(cfg, stream, n, batch_size, prep, loss_fn)
+             loss_fn, frozen: Tuple[str, ...] = ()):
+    epoch = SampledEpoch(cfg, stream, n, batch_size, prep, loss_fn, frozen)
     return epoch, epoch.steps, epoch.trained_per_epoch
 
 
@@ -564,3 +748,33 @@ def build_common_space_epoch(cfg: Config, n: int):
 
     return _sampled(cfg, "common_space", n, cfg.entity_batch_size, prep,
                     loss_fn)
+
+
+def build_space_mapping_epoch(cfg: Config, n: int):
+    """SSL combination: map each view into the shared space, ``ent``,
+    through its own mapping (whole-batch-normalized mapped rows, an
+    orthogonality penalty of weight ``orthogonal_weight``). Only the shared
+    variables train: ``ent`` (row-sparse) and the three mappings (dense);
+    ``rv_ent`` and ``av_ent`` are frozen reads. ``epoch(params, opt_state,
+    gen, entities, constants=...)``."""
+    ow = cfg.orthogonal_weight
+
+    def prep(constants, ents):
+        return {"ent": ents}, None
+
+    def loss_fn(rows, dense, frozen, constants, ents):
+        final = l2_normalize(rows["ent"], axis=-1)
+        eye = torch.eye(final.shape[-1], dtype=final.dtype,
+                        device=final.device)
+        loss = space_mapping_loss(constants["name_embeds"][ents], final,
+                                  dense["nv_mapping"], eye, ow)
+        loss = loss + space_mapping_loss(
+            l2_normalize(frozen["rv_ent"], axis=-1), final,
+            dense["rv_mapping"], eye, ow)
+        loss = loss + space_mapping_loss(
+            l2_normalize(frozen["av_ent"], axis=-1), final,
+            dense["av_mapping"], eye, ow)
+        return loss
+
+    return _sampled(cfg, "space_mapping", n, cfg.entity_batch_size, prep,
+                    loss_fn, frozen=("rv_ent", "av_ent"))

@@ -1,6 +1,7 @@
 """MultiKE trainer (counterpart of multike_tpu/train/trainer.py): owns the
-parameters, per-stream Adagrad accumulators, device triple arrays, the
-neighbor table of the truncated phase and the epoch functions.
+parameters, per-stream optimizer states, device triple arrays, the neighbor
+table of the truncated phase, the Bloom filter of the true relation triples
+and the epoch functions.
 
 Each ``train_*_1epo`` method runs one epoch of one stream. Log lines keep
 the reference's format, and every epoch is recorded in ``metrics``.
@@ -12,7 +13,10 @@ Differences from the JAX package, by design:
   * the neighbor refresh is an exact top-k on every device (the JAX
     package uses ``approx_max_k`` on the TPU);
   * a checkpoint stores ``[seed, epoch]`` where the JAX package stores its
-    PRNG key, and a resumed run reseeds its generator from the two.
+    PRNG key, and a resumed run reseeds its generator from the two;
+  * per-slot "resample" rejection decides on the host, after each round,
+    whether to go on (one device sync per round), where the JAX package
+    runs a device-side while loop.
 """
 from __future__ import annotations
 
@@ -27,7 +31,8 @@ from multike_tpu_torch import persistence
 from multike_tpu_torch.config import Config
 from multike_tpu_torch.data.kg import triples_to_array
 from multike_tpu_torch.params import init_params, l2_normalize
-from multike_tpu_torch.sampling import NeighborState, empty_neighbor_state
+from multike_tpu_torch.sampling import (NeighborState, build_triple_filter,
+                                        empty_neighbor_state)
 from multike_tpu_torch.train import streams
 from multike_tpu_torch.utils.device import resolve_device
 from multike_tpu_torch.utils.metrics import MetricsLog
@@ -108,11 +113,36 @@ class MultiKETrainer:
         self.k_nbr2 = max(1, int((1 - eps) * kgs.kg2.entities_num))
         self.neighbors: Optional[NeighborState] = None
 
+        # exact rejection of true triples: one Bloom filter over both KGs'
+        # local relation triples (their id spaces are disjoint)
+        self.triple_filter = None
+        if cfg.neg_rejection_tries > 0 or cfg.chunk_exact_rejection:
+            self.triple_filter = build_triple_filter(
+                np.concatenate([rt1, rt2]), device=self.device)
+
         self._epoch_fns: Dict = {}
         # host list -> device tensor, cached on list identity (see
         # _cached_array)
         self._arr_cache: Dict = {}
         self.metrics = MetricsLog(cfg.metrics_log_path or None)
+        self._log(f"device memory estimate: {self.memory_estimate_mb():.0f} "
+                  "MB (tables + per-stream optimizer states + neighbor "
+                  "table)")
+
+    def memory_estimate_mb(self) -> float:
+        """Rough device footprint: parameter tables, per-stream optimizer
+        states, constants, triple arrays, the Bloom filter and the neighbor
+        table at its size after a refresh."""
+        total = sum(t.numel() * t.element_size()
+                    for tree in (self.params, self.opt_states, self.constants)
+                    for t in streams._leaves(tree))
+        total += sum(t.numel() * t.element_size()
+                     for t in (self.rel_triples1, self.rel_triples2))
+        if self.triple_filter is not None:
+            total += self.triple_filter.bits.numel() * 4
+        kmax = max(self.k_nbr1, self.k_nbr2, 8)
+        total += self.kgs.entities_num * (kmax * 4 + 5)  # nbr + has + cnt
+        return total / 1e6
 
     # ------------------------------------------------------------------
     # epoch functions and device arrays
@@ -123,7 +153,8 @@ class MultiKETrainer:
             if kind == "rel_view":
                 n1, n2, with_nbr = shape_key
                 fn = streams.build_rel_view_epoch(
-                    self.cfg, n1, n2, self.ranges, with_neighbors=with_nbr)
+                    self.cfg, n1, n2, self.ranges, with_neighbors=with_nbr,
+                    tfilter=self.triple_filter)
             else:
                 fn = getattr(streams, f"build_{kind}_epoch")(self.cfg,
                                                               *shape_key)
@@ -199,10 +230,15 @@ class MultiKETrainer:
                                                   self.n_rel2, with_nbr)
         loss = epoch_fn(self.params, self.opt_states["rel_view"], self.gen,
                         self.rel_triples1, self.rel_triples2, self.neighbors)
+        fields = {"truncated": with_nbr, "scheme": epoch_fn.scheme}
+        if epoch_fn.dropped is not None:
+            # share of the epoch's real negative slots the Bloom filter
+            # dropped as true triples
+            fields["dropped_share"] = float(epoch_fn.dropped) / epoch_fn.slots
         return self._finish_epoch(
             "rel_view", epoch, loss, trained, start,
             "epoch {} of rel. view, avg. loss: {:.4f}, time: {:.4f}s",
-            truncated=with_nbr)
+            **fields)
 
     def train_attribute_view_1epo(self, epoch: int):
         start = time.time()
@@ -268,7 +304,7 @@ class MultiKETrainer:
             " loss: {:.4f}, time: {:.4f}s", constants=self.constants)
 
     # ------------------------------------------------------------------
-    # combination stream
+    # combination streams
     # ------------------------------------------------------------------
     def train_common_space_learning_1epo(self, epoch: int,
                                          entities: Sequence[int]):
@@ -276,6 +312,14 @@ class MultiKETrainer:
             "common_space", epoch,
             (self._cached_array("common_space_ents", entities),),
             "epoch {} of common space learning, avg. loss: {:.4f}, "
+            "time: {:.4f}s", constants=self.constants)
+
+    def train_shared_space_mapping_1epo(self, epoch: int,
+                                        entities: Sequence[int]):
+        return self._sampled_epoch(
+            "space_mapping", epoch,
+            (self._cached_array("space_mapping_ents", entities),),
+            "epoch {} of shared space learning, avg. loss: {:.4f}, "
             "time: {:.4f}s", constants=self.constants)
 
     # ------------------------------------------------------------------

@@ -1,5 +1,5 @@
 """The PyTorch port stands alone: importing it and every submodule loads
-neither JAX nor the JAX package, and no file of the port (nor
+neither JAX, optax nor the JAX package, and no file of the port (nor
 ``chip_smoke.py``) imports them."""
 import json
 import os
@@ -10,8 +10,8 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "multike_tpu_torch")
 FORBIDDEN = re.compile(
-    r"^\s*(?:import|from)\s+(?:jax|jaxlib|multike_tpu)(?:[.\s,]|$)"
-    r"|import_module\(\s*['\"](?:jax|jaxlib|multike_tpu)(?:[.'\"])",
+    r"^\s*(?:import|from)\s+(?:jax|jaxlib|optax|multike_tpu)(?:[.\s,]|$)"
+    r"|import_module\(\s*['\"](?:jax|jaxlib|optax|multike_tpu)(?:[.'\"])",
     re.MULTILINE)
 
 _PROBE = """
@@ -21,7 +21,7 @@ names = [i.name for i in pkgutil.walk_packages(m.__path__, m.__name__ + '.')]
 for n in names:
     importlib.import_module(n)
 bad = sorted(k for k in sys.modules
-             if k.split('.')[0] in ('jax', 'jaxlib', 'multike_tpu'))
+             if k.split('.')[0] in ('jax', 'jaxlib', 'optax', 'multike_tpu'))
 print(json.dumps([names, bad]))
 """
 
@@ -33,6 +33,11 @@ ITC_MODULES = {
         "text.literal_encoder", "text.word2vec", "train.itc",
         "utils.metrics", "utils.native", "views.attr_conv")}
 
+# every module the SSL slice added
+SSL_MODULES = {
+    "multike_tpu_torch." + m for m in (
+        "train.ssl", "train.optimizers", "utils.misc", "utils.profiling")}
+
 
 def test_import_loads_no_jax():
     env = dict(os.environ)
@@ -43,6 +48,7 @@ def test_import_loads_no_jax():
     names, bad = json.loads(out.stdout.strip().splitlines()[-1])
     assert len(names) >= 40          # every submodule was imported
     assert ITC_MODULES <= set(names), ITC_MODULES - set(names)
+    assert SSL_MODULES <= set(names), SSL_MODULES - set(names)
     assert bad == [], bad
 
 
@@ -69,5 +75,6 @@ def test_forbidden_pattern_catches_imports():
     assert FORBIDDEN.search("    from multike_tpu.params import x")
     assert FORBIDDEN.search("import multike_tpu")
     assert FORBIDDEN.search("importlib.import_module('jax')")
+    assert FORBIDDEN.search("import optax")
     assert not FORBIDDEN.search("from multike_tpu_torch.params import x")
     assert not FORBIDDEN.search("import jaxtyping_like_name_elsewhere")

@@ -3,7 +3,7 @@
 * ``cli.main([... "--device", "cpu"])`` with the verify recipe's settings
   logs every stream, saves the 6 ``.npy`` files and the id dicts, and
   returns a finite 4-key MRR dict; without ``--device`` and without a card
-  it stops instead of running on the CPU.
+  it stops instead of running on the CPU, in either mode.
 * ``MultiKE_ITC`` at the settings of tests/test_integration_itc.py: rv and
   final valid MRR rise, nv test MRR is above 0.9 and, with the JAX
   DataModel's literal vectors read through the cache, equals the JAX
@@ -96,13 +96,11 @@ def test_cli_itc_on_cpu(verify_run, capsys):
 
 def test_cli_needs_the_card_unless_told(verify_run):
     _, folder, args = verify_run
-    with pytest.raises(NotImplementedError, match="SSL"):
-        cli.main(["-m", "SSL", "-d", folder, "--args", args,
-                  "--device", "cpu"])
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default would use it")
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        cli.main(["-m", "ITC", "-d", folder, "--args", args])
+    for mode in ("ITC", "SSL"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(["-m", mode, "-d", folder, "--args", args])
 
 
 # ---------------------------------------------------------------------------

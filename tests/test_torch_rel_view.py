@@ -238,6 +238,31 @@ def test_epoch_pools_in_range_and_sparse_equals_dense():
     (dict(truncated_neg_scheme="per_slot"), dict(with_neighbors=True)),
 ])
 def test_later_slices_raise(kw, build_kw):
-    with pytest.raises(NotImplementedError):
-        tst.build_rel_view_epoch(Config(**CFG, **kw), 90, 70, RANGES,
-                                 **build_kw)
+    """These configurations raised until per-slot sampling and the Bloom
+    filter were ported; now each builds and trains one finite step."""
+    from multike_tpu_torch.sampling import (build_neighbor_state,
+                                            build_triple_filter)
+
+    rng = np.random.RandomState(4)
+    t1 = np.stack([rng.randint(0, 20, 90), rng.randint(0, R, 90),
+                   rng.randint(0, 20, 90)], 1)
+    t2 = np.stack([rng.randint(20, 40, 70), rng.randint(0, R, 70),
+                   rng.randint(20, 40, 70)], 1)
+    tf = build_triple_filter(np.concatenate([t1, t2]), log2m=14)
+    cfg = Config(**CFG, **kw)
+    epoch, steps, _ = tst.build_rel_view_epoch(cfg, 90, 70, RANGES,
+                                               tfilter=tf, **build_kw)
+    assert epoch.scheme == ("chunk_shared" if "chunk_exact_rejection" in kw
+                            else "per_slot")
+    nbr = build_neighbor_state(E, [(np.arange(E), rng.randint(0, 20, (E, 3))
+                                    + 20 * (np.arange(E)[:, None] >= 20))])
+    jparams = jp.init_params(JConfig(**CFG), E, R, 2)
+    params = tp.params_from_reference(
+        {k: np.asarray(jparams[k]) for k in ("rv_ent", "rel")}, device="cpu")
+    before = params["rv_ent"].clone()
+    acc = {k: torch.full_like(v, 0.1) for k, v in params.items()}
+    xs = epoch.draw(torch.Generator().manual_seed(0), torch.as_tensor(t1),
+                    torch.as_tensor(t2), nbr)
+    loss = epoch.step(params, acc, *(x[0] for x in xs))
+    assert np.isfinite(float(loss)) and float(loss) > 0
+    assert not torch.equal(params["rv_ent"], before)
