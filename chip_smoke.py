@@ -6,6 +6,8 @@
                                         # package under DIR (for example an
                                         # earlier commit, from git archive)
 
+(``--mesh-rank TASK SPEC`` is how phase 8 starts its rank processes.)
+
 Phases, each of which must pass or the script exits non-zero:
 
   1. build the CUDA kernels from ``multike_tpu_torch/csrc`` (timed), and
@@ -47,13 +49,33 @@ Phases, each of which must pass or the script exits non-zero:
      the embeddings saved; the Bloom words and membership must be bit-equal
      to the CPU's, and one per-slot rel_view step with its keep mask, one
      space_mapping step and one dense step each of Adam, Adadelta and SGD
-     must agree with the CPU's.
+     must agree with the CPU's;
+  8. the mesh (parallel/*, eval/ring.py), in rank processes of this script
+     (``--mesh-rank``), each under a timeout; a failing rank fails the run.
+     (a) NCCL at world size 1: a ``MeshContext`` of dp = tp = 1, so the
+     gather of (id, row-grad) pairs, the dense all-reduce and the ring's
+     gathers go through NCCL; one epoch of each of the 8 streams equals the
+     epoch without a mesh (rtol 1e-5 / atol 1e-6 on losses and tables) and
+     ``ring_rank_and_align`` equals ``rank_and_align`` exactly, with and
+     without CSLS, and K2's plain version up to ties. (b) gloo ranks
+     sharing the card: ``spmd.dryrun`` at dp=2 x tp=2 (4 ranks) against
+     one rank (rtol 1e-3 per stream); the ring at 35,000 x 70,000, d=75,
+     over 2 ranks, with and without CSLS: counts and argmax exactly equal
+     to one K2 call on the ring's own gold and penalties, equal up to ties
+     to K2's plain version with the one-rank engine's penalties (which the
+     ring's must match within 1e-6), and K2 against its plain version on
+     the ring's blocks with gold ids outside them; the ITC driver through ``cli.main`` at dp=2 against one
+     rank on phase 6's pair and literal cache (per-stream losses of every
+     epoch within rtol 2e-3, test MRRs within 0.02). K1 and K2 must launch
+     on every rank. The ranks share one card, so their times say nothing
+     about scaling.
 
 It then prints one ``{"kernels": [...]}`` line (``launches`` counts the SSL
-run; ``launches_by_path`` adds the ITC run's and phase 4's), the card's
-name and power limit as nvidia-smi reports them, and last ``{"ok": true,
-"device": ...}``. Without a CUDA device, or without the package beside it,
-it fails.
+run; ``launches_by_path`` adds the ITC run's, phase 4's and the mesh
+runs' over all ranks, ``mesh_launches_by_rank`` each mesh run's per rank),
+the card's name and power limit as nvidia-smi reports them, and last
+``{"ok": true, "device": ...}``. Without a CUDA device, or without the
+package beside it, it fails.
 """
 from __future__ import annotations
 
@@ -61,6 +83,7 @@ import glob
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -317,10 +340,11 @@ def _rank_inputs(dev, n1, n2, d, seed):
     return e1.contiguous(), e2.contiguous()
 
 
-def _rank_compare(e1, e2, gold, r2, got, want):
+def _rank_compare(e1, e2, gold, r2, got, want, gidx=None):
     """(count mismatches, argmax mismatches, rows near a tie). A mismatch is
     allowed only on a row where a competing score lies within 1e-6 of its
-    gold (count) or of its best score (argmax)."""
+    gold (count) or of its best score (argmax). Row i's gold column is
+    ``gidx[i]`` (default i); one outside ``[0, len(e2))`` is no column."""
     import torch
 
     c_bad = torch.nonzero(got[0] != want[0]).flatten()
@@ -331,7 +355,9 @@ def _rank_compare(e1, e2, gold, r2, got, want):
         if r2 is not None:
             s = 2 * s - r2
         near_best = int(((s - s.max()).abs() <= 1e-6).sum()) > 1
-        s[i] = float("inf")                 # the gold column is not counted
+        g = i if gidx is None else int(gidx[i])
+        if 0 <= g < len(s):
+            s[g] = float("inf")             # the gold column is not counted
         near_gold = bool(((s - gold[i]).abs() <= 1e-6).any())
         check(near_gold or near_best,
               f"K2 row {i}: count {int(got[0][i])} vs {int(want[0][i])}, "
@@ -1229,17 +1255,563 @@ def check_ssl_against_cpu(model, probes=1_000_000):
                 rel_view_dropped_slots=dropped, steps=steps)
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the mesh, in rank processes
+# ---------------------------------------------------------------------------
+
+MESH_DIR = os.path.join(REPO, "output", "chip_smoke", "mesh")
+
+
+def spawn_ranks(task: str, n: int, spec: dict, timeout: float):
+    """Runs mesh task ``task`` in ``n`` fresh processes of this script
+    (``--mesh-rank``), ranks 0..n-1 of one world joined through a file
+    store. Returns (every rank's result in rank order, seconds). A rank
+    that fails fails the run at once, one that outlives ``timeout`` too;
+    no rank outlives the call."""
+    folder = os.path.join(MESH_DIR, f"{task}_{n}")
+    shutil.rmtree(folder, ignore_errors=True)
+    os.makedirs(folder)
+    spec = dict(spec, out=folder, timeout=timeout,
+                store="file://" + os.path.join(folder, "store"))
+    path = os.path.join(folder, "spec.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    # the ranks share the host's cores; the loopback carries the
+    # rendezvous sockets of gloo and NCCL; the cuBLAS workspace setting is
+    # the one its deterministic mode needs (task world1)
+    env = dict(os.environ, WORLD_SIZE=str(n), GLOO_SOCKET_IFNAME="lo",
+               NCCL_SOCKET_IFNAME="lo", CUBLAS_WORKSPACE_CONFIG=":4096:8",
+               OMP_NUM_THREADS=str(max(1, (os.cpu_count() or 8) // n)))
+    procs, logs = [], []
+    t0 = time.time()
+    for r in range(n):
+        logs.append(os.path.join(folder, f"rank{r}.log"))
+        with open(logs[-1], "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--mesh-rank",
+                 task, path], cwd=REPO, stdout=f, stderr=subprocess.STDOUT,
+                env=dict(env, RANK=str(r), LOCAL_RANK=str(r))))
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs):
+                break
+            if time.time() - t0 > timeout:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    secs = time.time() - t0
+    for r, (p, lp) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            with open(lp, errors="replace") as f:
+                tail = f.read()[-3000:]
+            raise SmokeFailure(
+                f"mesh {task}: rank {r} of {n} exited with {p.returncode} "
+                f"after {secs:.1f} s (timeout {timeout} s):\n{tail}")
+    results = []
+    for r in range(n):
+        with open(os.path.join(folder, f"rank{r}.json")) as f:
+            results.append(json.load(f))
+    return results, secs
+
+
+def _launches():
+    from multike_tpu_torch.kernels import apply_kernel as ak
+    from multike_tpu_torch.kernels import rank_kernel as rk
+
+    return {"fused_row_adagrad": ak.launches, "rank_count": rk.launches}
+
+
+def _zero_launches():
+    from multike_tpu_torch.kernels import apply_kernel as ak
+    from multike_tpu_torch.kernels import rank_kernel as rk
+
+    ak.launches = 0
+    rk.launches = 0
+
+
+def _sync(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _excess(got, want, rtol, atol) -> float:
+    """The largest amount by which |got - want| passes atol + rtol |want|
+    (<= 0: within tolerance)."""
+    return float(((got - want).abs() - (atol + rtol * want.abs())).max())
+
+
+def _ring_inputs(n1, n2, d, seed):
+    """Host (numpy) rows of both sides, aligned pairs, unit rows."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    e1 = rng.randn(n1, d).astype(np.float32)
+    e2 = rng.randn(n2, d).astype(np.float32)
+    e2[:n1] += 0.5 * e1
+    return (e1 / np.linalg.norm(e1, axis=1, keepdims=True),
+            e2 / np.linalg.norm(e2, axis=1, keepdims=True))
+
+
+def _ring_against_plain(d1, d2, ring, r2=None):
+    """The ring's ``(count, best)`` against K2's plain version on the whole
+    matrix (gold: column i; CSLS with the penalties ``r2``, computed apart
+    from the ring): mismatches only on rows within 1e-6 of a tie (a check
+    fails otherwise). Returns (count mismatches, argmax mismatches, tie
+    rows)."""
+    import torch
+
+    from multike_tpu_torch.kernels import rank_kernel as rk
+
+    n1 = d1.shape[0]
+    gold = torch.sum(d1 * d2[:n1], dim=1)
+    if r2 is not None:
+        gold = 2.0 * gold - r2[:n1]
+    gidx = torch.arange(n1, dtype=torch.int32, device=d1.device)
+    want = rk.rank_count_plain(d1, gold.contiguous(), gidx, d2, r2)
+    got = [torch.as_tensor(x, device=d1.device) for x in ring]
+    return _rank_compare(d1, d2, gold, r2, got, want)
+
+
+def _blocks_against_plain(e1, gold, gidx, e2, r2, blocks):
+    """K2 against its plain version on column blocks ``(col0, width)`` of
+    ``e2``, called as a ring step calls it: gold ids shifted by ``col0``,
+    so they fall below 0, inside the block or at its width and beyond.
+    Mismatches only on rows within 1e-6 of a tie (a check fails otherwise);
+    returns [count mismatches, argmax mismatches, tie rows, best_val
+    max_abs_err] per block."""
+    import torch
+
+    from multike_tpu_torch.kernels import rank_kernel as rk
+
+    out = []
+    for col0, width in blocks:
+        g = (gidx - col0).to(torch.int32)
+        blk = e2[col0:col0 + width].contiguous()
+        rb = None if r2 is None else r2[col0:col0 + width].contiguous()
+        got = rk.rank_count(e1, gold, g, blk, rb)
+        want = rk.rank_count_plain(e1, gold, g, blk, rb)
+        err = float((got[2] - want[2]).abs().max())
+        check(err <= 1e-5, f"K2 block at column {col0}: best_val differs "
+              f"from the plain version by {err:.3e}")
+        out.append([*_rank_compare(e1, blk, gold, rb, got, want, g), err])
+    return out
+
+
+def mesh_task_world1(spec):
+    """(a) One rank: a process group of size 1 on ``spec["backend"]`` (NCCL
+    on the card) and a ``MeshContext`` of dp = tp = 1 built directly, so
+    the mesh's collectives run through the backend. One epoch of each of
+    the 8 streams, and the ring with and without CSLS; then the same
+    without a mesh, compared."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from multike_tpu_torch.config import Config
+    from multike_tpu_torch.eval.alignment import rank_and_align
+    from multike_tpu_torch.eval.ring import ring_rank_and_align
+    from multike_tpu_torch.eval.similarity import csls_penalties_blockwise
+    from multike_tpu_torch.parallel import distributed, spmd
+    from multike_tpu_torch.parallel.context import MeshContext
+    from multike_tpu_torch.parallel.mesh import make_mesh
+
+    dev = torch.device(spec["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    # the atomic sums of the dedup and of the gathers' backward add in
+    # another order each run; the deterministic ones make the two runs
+    # comparable bit for bit (an op without one warns in the rank's log)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    dist.init_process_group(
+        spec["backend"], init_method=spec["store"], world_size=1, rank=0,
+        timeout=datetime.timedelta(seconds=spec["timeout"]))
+    pctx = MeshContext(make_mesh(1, 1), dev)
+    cfg = Config(**spec["cfg"])
+    h1, h2 = _ring_inputs(*spec["ring"], seed=5)
+    csls = (0, spec["csls_k"])
+
+    _zero_launches()
+    t0 = time.time()
+    losses, tables = spmd.run_streams(cfg, pctx, dev, **spec["sizes"])
+    ring = [ring_rank_and_align(pctx.dp_group, h1, h2, csls_k=k, device=dev)
+            for k in csls]
+    _sync(dev)
+    secs = time.time() - t0
+    launches = _launches()
+    transport = distributed.transport(pctx.dp_group)
+
+    want_losses, want_tables = spmd.run_streams(cfg, None, dev,
+                                                **spec["sizes"])
+    one = [rank_and_align(h1, h2, csls_k=k, device=dev) for k in csls]
+    # the ring's one block against K2's plain version, on the rows the ring
+    # normalized on the host (eval/ring.py)
+    d1, d2 = (torch.as_tensor(x / np.maximum(np.linalg.norm(
+        x, axis=1, keepdims=True), 1e-30), device=dev) for x in (h1, h2))
+    plain = [_ring_against_plain(
+        d1, d2, r, csls_penalties_blockwise(d1, d2, k)[1] if k else None)
+        for k, r in zip(csls, ring)]
+    loss_excess = max(abs(losses[k] - v) - (1e-6 + 1e-5 * abs(v))
+                      for k, v in want_losses.items())
+    table_excess = {k: max(_excess(a, b, 1e-5, 1e-6) for a, b in zip(
+        _leaves(tables[k]), _leaves(want_tables[k]))) for k in tables}
+    dist.destroy_process_group()
+    return dict(transport=transport, launches=launches, seconds=secs,
+                losses=losses, want_losses=want_losses,
+                loss_excess=loss_excess, table_excess=table_excess,
+                ring_equal=[bool(np.array_equal(a[0], b[0]) and
+                                 np.array_equal(a[1], b[1]))
+                            for a, b in zip(ring, one)],
+                ring_plain=plain, staged=distributed.staged)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
+
+
+def mesh_task_dryrun(spec):
+    """(b) ``spmd.main``, the package's own dryrun entry point, on this
+    world of ranks."""
+    from multike_tpu_torch.parallel import distributed, spmd
+
+    _zero_launches()
+    t0 = time.time()
+    metrics = spmd.main(["--dp", str(spec["dp"]), "--tp", str(spec["tp"]),
+                         "--device", spec["device"], "--dist-backend",
+                         spec["backend"], "--dist-init", spec["store"]])
+    return dict(metrics=metrics, launches=_launches(),
+                seconds=time.time() - t0, staged=distributed.staged)
+
+
+def mesh_task_ring(spec):
+    """(b) ``ring_rank_and_align`` over this world, with and without CSLS,
+    timed on each rank. Then, on rank 0 and outside the counted run: one K2
+    call on the whole matrix from the ring's own gold and CSLS penalties,
+    which must give the same counts and argmax (the blocks' merge); K2's
+    plain version on the whole matrix with the one-rank engine's penalties
+    (``csls_penalties_blockwise``, apart from the ring's top-k pass), which
+    may differ only on ties; K2 against its plain version on rank 0's ring
+    blocks and on one block whose shifted gold ids fall below 0, inside and
+    beyond it. The ring's penalties must lie within 1e-6 of the one-rank
+    engine's (another order of the top-k merge and other matmul shapes, so
+    not bit-equal in general)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from multike_tpu_torch.eval.ring import (make_ring_topk_means,
+                                             ring_rank_and_align)
+    from multike_tpu_torch.eval.similarity import csls_penalties_blockwise
+    from multike_tpu_torch.kernels import rank_kernel as rk
+    from multike_tpu_torch.parallel import distributed
+
+    dev = torch.device(spec["device"])
+    distributed.init_distributed(backend=spec["backend"], device=dev,
+                                 init_method=spec["store"],
+                                 timeout_s=spec["timeout"])
+    group, P = dist.group.WORLD, distributed.world_size()
+    n1, n2, d = spec["shape"]
+    check(n1 % P == 0 and n2 % P == 0, "ring shape must split evenly")
+    h1, h2 = _ring_inputs(n1, n2, d, seed=7)
+    out = {"transport": distributed.transport(group), "ms": {}}
+    runs = {}
+    _zero_launches()
+    for k in (0, spec["csls_k"]):
+        ring_rank_and_align(group, h1, h2, normalize=False, csls_k=k,
+                            device=dev)                      # warm-up
+        ms = []
+        for _ in range(spec["reps"]):
+            dist.barrier()
+            t0 = time.perf_counter()
+            runs[k] = ring_rank_and_align(group, h1, h2, normalize=False,
+                                          csls_k=k, device=dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out["ms"][k] = ms
+    out["launches"] = _launches()
+    out["staged"] = distributed.staged
+
+    # the reference, outside the counted run: the ring's gold and, under
+    # CSLS, its penalties r2 (a ring pass of its own on every rank)
+    d1 = torch.as_tensor(h1, device=dev)
+    d2 = torch.as_tensor(h2, device=dev)
+    gold0 = torch.sum(d1 * d2[:n1], dim=1)
+    gidx = torch.arange(n1, dtype=torch.int32, device=dev)
+    b1 = distributed.block_slice(n1, P, distributed.rank())
+    b2 = distributed.block_slice(n2, P, distributed.rank())
+    r2 = distributed.all_gather(make_ring_topk_means(
+        group, spec["csls_k"], n_valid=n1)(d2[b2], d1[b1]), group)
+    me = distributed.rank()
+    distributed.shutdown()
+    if me != 0:
+        return out
+    _, r2_one = csls_penalties_blockwise(d1, d2, spec["csls_k"])
+    out["r2_max_abs_diff"] = float((r2 - r2_one).abs().max())
+    nb = n2 // P
+    # rank 0's ring steps, then a block holding gold ids of every kind
+    blocks = [(p * nb, nb) for p in range(P)] + [(n1 // 4, n1 // 2)]
+    for key in ("equal", "mismatches", "mean_rank", "plain", "blocks"):
+        out[key] = {}
+    for k, (gold, pen, pen_one) in (
+            (0, (gold0, None, None)),
+            (spec["csls_k"], (2.0 * gold0 - r2[:n1], r2, r2_one))):
+        gold = gold.contiguous()
+        cnt, best, _ = rk.rank_count(d1, gold, gidx, d2, pen)
+        cnt, best = cnt.cpu().numpy(), best.cpu().numpy()
+        got_c, got_b = runs[k]
+        out["mismatches"][k] = [int((got_c != cnt).sum()),
+                                int((got_b != best).sum())]
+        out["equal"][k] = bool(np.array_equal(got_c, cnt)
+                               and np.array_equal(got_b, best))
+        out["mean_rank"][k] = float(cnt.mean())
+        out["plain"][k] = _ring_against_plain(d1, d2, runs[k], pen_one)
+        rows = [b1] * P + [slice(0, n1)]
+        out["blocks"][k] = [_blocks_against_plain(
+            d1[r].contiguous(), gold[r].contiguous(), gidx[r].contiguous(),
+            d2, pen, [b])[0] for r, b in zip(rows, blocks)]
+    out["block_spans"] = blocks
+    return out
+
+
+def mesh_task_cli(spec):
+    """``cli.main`` on ``spec["argv"]`` (the rendezvous added on a world
+    of more than one rank); its launches, result and seconds."""
+    from multike_tpu_torch import cli
+    from multike_tpu_torch.parallel import distributed
+
+    argv = list(spec["argv"])
+    if int(os.environ["WORLD_SIZE"]) > 1:
+        argv += ["--dist-init", spec["store"]]
+    _zero_launches()
+    t0 = time.time()
+    results = cli.main(argv)
+    out = dict(results=results, launches=_launches(),
+               seconds=time.time() - t0, staged=distributed.staged,
+               transport=distributed.transport()
+               if distributed.is_multiprocess() else "none")
+    distributed.shutdown()
+    return out
+
+
+MESH_TASKS = {"world1": mesh_task_world1, "dryrun": mesh_task_dryrun,
+              "ring": mesh_task_ring, "cli": mesh_task_cli}
+
+
+def mesh_rank(task: str, spec_path: str) -> int:
+    """One rank process of phase 8: runs ``task`` and writes its result."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    sys.path.insert(0, REPO)
+    import multike_tpu_torch  # noqa: F401  (sets the fp32 matmul policy)
+
+    out = MESH_TASKS[task](spec)
+    with open(os.path.join(spec["out"],
+                           f"rank{os.environ['RANK']}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def _stream_losses(path):
+    """{(stream, epoch): (loss, seconds)} of a metrics log's epochs."""
+    recs = {}
+    with open(path) as f:
+        for ln in f:
+            r = json.loads(ln)
+            if "loss" in r and r.get("epoch") is not None:
+                recs[(r["stream"], r["epoch"])] = (r["loss"], r["seconds"])
+    return recs
+
+
+def phase_mesh(dev, card, n=20_000, dim=75, batch=5000, epochs=10,
+               ring_shape=(35_000, 70_000), world1_sizes=None,
+               world1_ring=(6_000, 12_000), csls_k=10, timeout=300):
+    """Phase 8 (see the module's docstring). Returns the kernels' launches
+    summed over the mesh runs' ranks, each run's per rank, and the
+    numbers."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from multike_tpu_torch.parallel import spmd
+
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()       # the earlier phases' cached blocks
+    one_backend = "nccl" if dev.type == "cuda" else "gloo"
+    log(f"[mesh] the ranks below share one card ({card}): their times say "
+        "nothing about scaling across cards")
+    by_rank, numbers = {}, {}
+
+    # (a) NCCL at world size 1
+    sizes = world1_sizes or dict(entities=2 * n, relations=400,
+                                 attributes=120, literals=n, n_tri=6 * n,
+                                 n_ents=2 * n)
+    cfg = dict(dim=dim, batch_size=batch, entity_batch_size=batch,
+               attribute_batch_size=batch, neg_triple_num=10,
+               learning_rate=0.01, row_sparse_updates="on")
+    [w1], secs = spawn_ranks("world1", 1, dict(
+        device=str(dev), backend=one_backend, cfg=cfg, sizes=sizes,
+        ring=(*world1_ring, dim), csls_k=csls_k), timeout)
+    by_rank["world1"] = [w1["launches"]]
+    log(f"[mesh] (a) {w1['transport']} at world size 1, dp = tp = 1: 8 "
+        f"stream epochs and the ring in {w1['seconds']:.2f} s ({secs:.1f} s "
+        f"with the process); losses {w1['losses']}; worst excess over rtol "
+        f"1e-5 / atol 1e-6: losses {w1['loss_excess']:.3e}, tables "
+        f"{w1['table_excess']}; ring == rank_and_align (CSLS off, k="
+        f"{csls_k}): {w1['ring_equal']}; ring against K2's plain version "
+        f"(count mismatches, argmax mismatches, tie rows) "
+        f"{w1['ring_plain']}; launches {w1['launches']}")
+    check(w1["transport"] == one_backend, f"world1 ran on {w1['transport']}")
+    check(w1["loss_excess"] <= 0 and max(w1["table_excess"].values()) <= 0,
+          "(a) the mesh epochs at world size 1 differ from the epochs "
+          "without a mesh")
+    check(all(w1["ring_equal"]), "(a) the ring differs from rank_and_align")
+    check(w1["staged"] == 0 or one_backend == "gloo", "NCCL staged a tensor")
+    numbers["world1"] = {k: w1[k] for k in ("transport", "seconds", "losses",
+                                            "loss_excess", "table_excess",
+                                            "ring_equal", "ring_plain")}
+
+    # (b) gloo ranks sharing the card: the dryrun at 2 x 2
+    t0 = time.time()
+    want = spmd.dryrun(1, 1, device=dev)
+    one_s = time.time() - t0
+    ranks, secs = spawn_ranks("dryrun", 4, dict(
+        device=str(dev), backend="gloo", dp=2, tp=2), timeout)
+    by_rank["dryrun_2x2"] = [r["launches"] for r in ranks]
+    got = ranks[0]["metrics"]
+    worst = max(abs(got[k] - v) / abs(v) for k, v in want.items())
+    log(f"[mesh] (b) dryrun dp=2 x tp=2 on 4 gloo ranks: {got} in "
+        f"{[round(r['seconds'], 2) for r in ranks]} s per rank ({secs:.1f} s "
+        f"with the processes; 1 rank {one_s:.2f} s); worst relative "
+        f"difference from 1 rank {worst:.3e}; staged collectives per rank "
+        f"{[r['staged'] for r in ranks]}; launches per rank "
+        f"{by_rank['dryrun_2x2']}")
+    check(all(np.isclose(r["metrics"][k], v, rtol=1e-6)
+              for r in ranks for k, v in got.items()),
+          "the dryrun's ranks disagree")
+    check(set(got) == set(want) | {"eval_rows"} and worst <= 1e-3,
+          f"dryrun at 2 x 2 differs from 1 rank beyond rtol 1e-3: {got} vs "
+          f"{want}")
+    numbers["dryrun_2x2"] = dict(metrics=got, one_rank=want,
+                                 worst_rel_diff=worst,
+                                 seconds=[r["seconds"] for r in ranks])
+
+    # (b) the ring over 2 ranks
+    ranks, secs = spawn_ranks("ring", 2, dict(
+        device=str(dev), backend="gloo", shape=(*ring_shape, dim),
+        csls_k=csls_k, reps=3), timeout)
+    by_rank["ring_2"] = [r["launches"] for r in ranks]
+    r0 = ranks[0]
+    ring_ms = {k: [float(np.median(r["ms"][k])) for r in ranks]
+               for k in r0["ms"]}
+    log(f"[mesh] (b) ring {ring_shape[0]}x{ring_shape[1]} d={dim} on 2 "
+        f"{r0['transport']} ranks: median ms per call on each rank, CSLS "
+        f"off {ring_ms['0']}, k={csls_k} {ring_ms[str(csls_k)]}; counts and "
+        f"argmax mismatches against one K2 call {r0['mismatches']}; mean "
+        f"rank {r0['mean_rank']}; ring r2 vs one-rank r2 max abs diff "
+        f"{r0['r2_max_abs_diff']:.3e}; launches per rank {by_rank['ring_2']}")
+    log(f"[mesh]   against K2's plain version (count mismatches, argmax "
+        f"mismatches, tie rows): whole matrix, one-rank CSLS penalties "
+        f"{r0['plain']}; column blocks {r0['block_spans']} (rank 0's ring "
+        f"steps, then gold ids below 0, inside and beyond) with best_val "
+        f"max_abs_err {r0['blocks']}")
+    check(all(r0["equal"].values()), "the ring differs from one K2 call")
+    check(r0["r2_max_abs_diff"] <= 1e-6, "the ring's CSLS penalties differ "
+          "from the one-rank engine's by more than 1e-6")
+    numbers["ring_2"] = dict(shape=ring_shape, ms_per_rank=ring_ms,
+                             mean_rank=r0["mean_rank"],
+                             r2_max_abs_diff=r0["r2_max_abs_diff"],
+                             plain=r0["plain"], blocks=r0["blocks"],
+                             staged=[r["staged"] for r in ranks])
+
+    # (b) the ITC driver through the CLI: one rank, then dp=2
+    runs = {}
+    for label, world in (("one", 1), ("dp2", 2)):
+        cfg = driver_config(n, f"mesh_{label}", dim, batch, epochs,
+                            retrain_literal_embeds=False)
+        folder = os.path.join(MESH_DIR, f"cli_{label}")
+        shutil.rmtree(folder, ignore_errors=True)
+        os.makedirs(folder)
+        args = os.path.join(folder, "args.json")
+        with open(args, "w") as f:
+            json.dump(dataclasses.asdict(cfg), f)
+        metrics = os.path.join(folder, "metrics.jsonl")
+        argv = ["-m", "ITC", "-d", cfg.training_data, "--args", args,
+                "--device", str(dev), "--set", f"metrics_log_path={metrics}"]
+        if world > 1:
+            argv += ["--set", f"mesh_dp={world}", "--dist-backend", "gloo"]
+        ranks, secs = spawn_ranks("cli", world, dict(argv=argv), timeout)
+        runs[label] = (ranks, secs, _stream_losses(metrics))
+    (one, one_s, one_l), (dp2, dp2_s, dp2_l) = runs["one"], runs["dp2"]
+    by_rank["itc_dp2"] = [r["launches"] for r in dp2]
+    check(set(one_l) == set(dp2_l) and len(one_l) > 0,
+          "the dp=2 driver ran other epochs than one rank")
+    worst = max(abs(dp2_l[k][0] - v[0]) / abs(v[0]) for k, v in one_l.items())
+    mrr = {v: (one[0]["results"][v], dp2[0]["results"][v])
+           for v in one[0]["results"]}
+    per_epoch = {}
+    for label, recs in (("one", one_l), ("dp2", dp2_l)):
+        for (stream, ep), (_, s) in recs.items():
+            if ep > 1:
+                per_epoch.setdefault(stream, {}).setdefault(label, []).append(s)
+    per_epoch = {s: {k: float(np.mean(v)) for k, v in x.items()}
+                 for s, x in per_epoch.items()}
+    log(f"[mesh] (b) ITC driver through cli.main, {n} entities per KG, "
+        f"d={dim}, batch {batch}, {epochs} epochs: 1 rank {one[0]['seconds']:.1f}"
+        f" s, dp=2 over {dp2[0]['transport']} {[round(r['seconds'], 1) for r in dp2]}"
+        f" s per rank; worst relative loss difference over "
+        f"{len(one_l)} stream epochs {worst:.3e}; test MRR (1 rank, dp=2) "
+        f"{mrr}; seconds per stream epoch (mean of epochs 2-{epochs}) "
+        f"{per_epoch}; staged collectives per rank "
+        f"{[r['staged'] for r in dp2]}; launches per rank {by_rank['itc_dp2']}")
+    check(worst <= 2e-3, "the dp=2 driver's losses differ from one rank's "
+          "beyond rtol 2e-3")
+    check(all(abs(a - b) < 0.02 for a, b in mrr.values()),
+          f"the dp=2 driver's test MRRs are not within 0.02: {mrr}")
+    numbers["itc_dp2"] = dict(seconds_one=one[0]["seconds"],
+                              seconds_dp2=[r["seconds"] for r in dp2],
+                              worst_rel_loss_diff=worst, test_mrr=mrr,
+                              seconds_per_stream_epoch=per_epoch,
+                              launches_one_rank=one[0]["launches"])
+
+    # K1 and K2 on every rank of every run
+    expect = {"world1": ("fused_row_adagrad", "rank_count"),
+              "dryrun_2x2": ("fused_row_adagrad", "rank_count"),
+              "ring_2": ("rank_count",), "itc_dp2": ("fused_row_adagrad",
+                                                     "rank_count")}
+    for run, names in expect.items():
+        for r, counts in enumerate(by_rank[run]):
+            for name in names:
+                check(counts[name] > 0, f"{name} did not launch on rank {r} "
+                      f"of the mesh run {run}: {by_rank[run]}")
+    total = {name: sum(c[name] for runs_ in by_rank.values() for c in runs_)
+             for name in ("fused_row_adagrad", "rank_count")}
+    numbers["launches_by_rank"] = by_rank
+    log(f"[mesh] {json.dumps(numbers)}")
+    return total, by_rank, numbers
+
+
 def main() -> int:
     try:
         import torch
     except ImportError:
         print("chip_smoke: PyTorch is not installed", file=sys.stderr)
         return 2
+    args = sys.argv[1:]
+    if len(args) == 3 and args[0] == "--mesh-rank":
+        return mesh_rank(args[1], args[2])       # a rank of phase 8
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one GPU",
               file=sys.stderr)
         return 2
-    args = sys.argv[1:]
     if args and (len(args) != 2 or args[0] != "--k2-of"):
         print("usage: chip_smoke.py [--k2-of DIR]", file=sys.stderr)
         return 2
@@ -1274,12 +1846,17 @@ def main() -> int:
     parity = phase_parity(dev, card)
     itc_launches, _, data = phase_itc(dev)
     ssl_launches, _ = phase_ssl(dev, data)
+    mesh_launches, mesh_by_rank, _ = phase_mesh(dev, card)
 
     for k in (k1, k2):
         k["launches"] = ssl_launches[k["name"]]
         k["launches_by_path"] = {"ssl": ssl_launches[k["name"]],
                                  "itc": itc_launches[k["name"]],
-                                 "rel_view": main_launches[k["name"]]}
+                                 "rel_view": main_launches[k["name"]],
+                                 "mesh": mesh_launches[k["name"]]}
+        k["mesh_launches_by_rank"] = {
+            run: [c[k["name"]] for c in counts]
+            for run, counts in mesh_by_rank.items()}
     log(f"[rate] {json.dumps(rate)}")
     log(f"[parity] {json.dumps(parity)}")
     log(f"[done] all phases passed in {time.time() - t_start:.1f} s")

@@ -7,6 +7,14 @@ Loads a reference-format JSON config (``--args``), overrides
 DataModel and the predicate-alignment model, then runs the mode's driver:
 ``MultiKE_ITC`` or ``MultiKE_SSL``. It runs on the card unless ``--device``
 names another device; without a card it stops rather than run on the CPU.
+
+On a mesh (``--set mesh_dp=N --set mesh_tp=M``) it runs as one process per
+rank, for example ``torchrun --nproc-per-node N -m multike_tpu_torch.cli
+...`` (or with the JAX package's ``COORDINATOR_ADDRESS`` /
+``NUM_PROCESSES`` / ``PROCESS_ID``); each rank takes ``cuda:LOCAL_RANK``
+unless ``--device`` says otherwise. ``--dist-backend gloo`` lets several
+ranks share one card; ``--dist-init`` names the rendezvous (for example
+``file:///shared/store``).
 """
 from __future__ import annotations
 
@@ -30,8 +38,13 @@ def main(argv=None):
                     help="torch device to run on (default: the card)")
     ap.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
                     help="override any Config field, e.g. --set dim=32")
+    ap.add_argument("--dist-backend", choices=["nccl", "gloo"], default=None,
+                    help="process-group backend of a multi-process run "
+                         "(default: nccl on the card, gloo on the CPU)")
+    ap.add_argument("--dist-init", default=None, metavar="URL",
+                    help="rendezvous of a multi-process run (default: "
+                         "tcp://COORDINATOR_ADDRESS or MASTER_ADDR:PORT)")
     ns = ap.parse_args(argv)
-    device = resolve_device(ns.device)
 
     cfg = load_config(ns.args) if ns.args and os.path.exists(ns.args) \
         else Config()
@@ -58,6 +71,15 @@ def main(argv=None):
             overrides[key] = val
     cfg = cfg.replace(**overrides)
 
+    # a multi-process launch joins its process group before any device work;
+    # one process: a no-op
+    from multike_tpu_torch.parallel import distributed
+
+    distributed.init_distributed(backend=ns.dist_backend, device=ns.device,
+                                 init_method=ns.dist_init)
+    device = resolve_device(distributed.rank_device(ns.device)
+                            if distributed.is_multiprocess() else ns.device)
+
     from multike_tpu_torch.align.predicates import PredicateAlignModel
     from multike_tpu_torch.data.dataset import DataModel
 
@@ -75,4 +97,7 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    from multike_tpu_torch.parallel import distributed
+
     main()
+    distributed.shutdown()

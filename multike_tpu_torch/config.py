@@ -2,8 +2,7 @@
 
 Every field of the reference ``Config`` is kept, with the same default, so
 one ``args.json`` loads into either package. Fields that only choose between
-TPU implementations are accepted and documented as such; the mesh fields,
-whose multi-GPU part is not ported yet, raise above 1.
+TPU implementations are accepted and documented as such.
 
 Reference quirk preserved: ``encoder_active`` defaults to ``"thah"`` (the
 reference's typo, which makes its literal autoencoder linear).
@@ -106,8 +105,9 @@ class Config:
     # Knobs the JAX package added
     # ------------------------------------------------------------------
     enable_early_stop: bool = False
-    # Device mesh (data x table parallel). Multi-device training is not
-    # ported yet: a product > 1 raises in the trainer.
+    # Device mesh (data x table parallel): a product > 1 trains on that many
+    # ranks, one process each, over torch.distributed (parallel/context.py);
+    # the process group must have exactly mesh_dp * mesh_tp ranks.
     mesh_dp: int = 1
     mesh_tp: int = 1
     # Row block of the plain rank engine (0 = auto) and the column block of

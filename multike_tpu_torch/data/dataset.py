@@ -24,6 +24,7 @@ from multike_tpu_torch.data.cleaning import clear_attribute_triples
 from multike_tpu_torch.data.kg import (KGs, generate_sup_attribute_triples,
                                        read_kgs_from_folder)
 from multike_tpu_torch.data.readers import read_local_names
+from multike_tpu_torch.parallel import distributed
 from multike_tpu_torch.utils.native import read_word2vec
 
 LITERAL_EMBEDDINGS_FILE = "literal_vectors.npy"
@@ -37,13 +38,22 @@ def _row_normalize(mat: np.ndarray) -> np.ndarray:
 
 def save_literal_vectors(folder: str, literal_list: List[str],
                          vectors: np.ndarray):
+    """Each file is written under a temporary name and renamed into place,
+    the vectors last, so a reader that finds the vectors (another rank of
+    a mesh, racing the writer) finds both files whole."""
     if len(literal_list) != len(vectors):
         raise ValueError(f"{len(literal_list)} literals, {len(vectors)} "
                          "vectors")
-    np.save(os.path.join(folder, LITERAL_EMBEDDINGS_FILE), vectors)
-    with open(os.path.join(folder, LITERAL_FILE), "w", encoding="utf-8") as f:
+    tmp = f".{os.getpid()}.tmp"
+    lits = os.path.join(folder, LITERAL_FILE)
+    with open(lits + tmp, "w", encoding="utf-8") as f:
         for lit in literal_list:
             f.write(lit + "\n")
+    os.replace(lits + tmp, lits)
+    vecs = os.path.join(folder, LITERAL_EMBEDDINGS_FILE)
+    with open(vecs + tmp, "wb") as f:
+        np.save(f, vectors)
+    os.replace(vecs + tmp, vecs)
 
 
 def load_literal_vectors(folder: str):
@@ -108,8 +118,10 @@ class DataModel:
                                  verbose=self.verbose, device=self.device)
             self.literal_vectors_mat = enc.encoded_literal_vector
             self.seconds.update(enc.seconds)
-            save_literal_vectors(cfg.training_data, self.literal_list,
-                                 self.literal_vectors_mat)
+            # every rank of a mesh encodes alike; one writes the cache
+            if distributed.rank() == 0:
+                save_literal_vectors(cfg.training_data, self.literal_list,
+                                     self.literal_vectors_mat)
         if self.literal_vectors_mat.shape[0] != len(self.literal_list):
             raise ValueError("literal cache: vector and literal counts differ")
         self.literal_id_dic = {lit: i for i, lit in

@@ -42,7 +42,7 @@ def _to_numpy(x) -> np.ndarray:
 
 def rank_and_align(embed1, embed2, normalize: bool = True, csls_k: int = 0,
                    row_block: Optional[int] = None, col_block: int = 4096,
-                   matmul_dtype=torch.float32, device=None):
+                   matmul_dtype=torch.float32, device=None, mesh=None):
     """Returns (rank_index (n1,), best_idx (n1,)) as int64 numpy arrays.
 
     Gold for row i is column i (requires n2 >= n1), as in the reference's
@@ -53,9 +53,20 @@ def rank_and_align(embed1, embed2, normalize: bool = True, csls_k: int = 0,
     host and sent to ``device`` (default: the card). Only the two (n1,)
     result vectors cross back. ``matmul_dtype=torch.bfloat16`` rounds the
     normalized inputs to bf16 before the float32 ranking. ``row_block``
-    sizes the plain version's row blocks on the CPU."""
+    sizes the plain version's row blocks on the CPU.
+
+    ``mesh`` (a ``parallel.context.MeshContext``): the ranking goes through
+    the ring over the mesh's dp ranks (eval/ring.py), both sides split over
+    them and normalized on the host; ``matmul_dtype`` is not applied there,
+    as in the JAX package."""
     if embed2.shape[0] < embed1.shape[0]:
         raise ValueError("gold column must exist for every row")
+    if mesh is not None:
+        from multike_tpu_torch.eval.ring import ring_rank_and_align
+
+        return ring_rank_and_align(mesh.dp_group, _to_numpy(embed1),
+                                   _to_numpy(embed2), normalize=normalize,
+                                   csls_k=csls_k, device=mesh.device)
     if torch.is_tensor(embed1) and torch.is_tensor(embed2):
         dev = embed1.device if device is None else resolve_device(device)
         d1 = embed1.to(dev, torch.float32)
@@ -98,9 +109,11 @@ def greedy_alignment(embed1, embed2, top_k: Sequence[int], nums_threads: int,
                      csls_k: int = 0, accurate: bool = False,
                      verbose: bool = True, matmul_dtype=None,
                      row_block: Optional[int] = None, col_block: int = 4096,
-                     device=None):
+                     device=None, mesh=None):
     """API parity with the reference's greedy_alignment; ``nums_threads`` is
-    accepted for compatibility. Returns (alignment_rest, hits1, mr, mrr)."""
+    accepted for compatibility; ``mesh`` routes the ranking through the ring
+    (see :func:`rank_and_align`). Returns (alignment_rest, hits1, mr,
+    mrr)."""
     t = time.time()
     assert 1 in top_k
     if metric == "cosine":
@@ -126,7 +139,7 @@ def greedy_alignment(embed1, embed2, top_k: Sequence[int], nums_threads: int,
         embed1, embed2, normalize=normalize, csls_k=csls_k,
         row_block=row_block, col_block=col_block,
         matmul_dtype=matmul_dtype if matmul_dtype is not None
-        else torch.float32, device=device)
+        else torch.float32, device=device, mesh=mesh)
     num = len(ranks)
     mr = float(np.mean(ranks + 1))
     mrr = float(np.mean(1.0 / (ranks + 1)))

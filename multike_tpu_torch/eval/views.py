@@ -8,7 +8,8 @@ its embeddings and the mean of the three views, summed over both sides and
 normalized. (The reference's ``wva`` returns before its own normalization
 block; the live math is the one reproduced here, as in the JAX package.)
 The embeddings stay on the trainer's device: only the (n1,) rank vectors
-and the six view weights reach the host.
+and the six view weights reach the host; on a mesh the ring takes host
+copies (eval/ring.py).
 """
 from __future__ import annotations
 
@@ -29,8 +30,11 @@ def _choose_embeds(trainer, embed_choice: str, w=(1, 1, 1)):
 
 
 def _engine_kw(trainer):
+    """Engine settings from the Config, and the trainer's mesh, which routes
+    every ranking through the ring (eval/ring.py)."""
     cfg = trainer.cfg
     return dict(
+        mesh=getattr(trainer, "pctx", None),
         matmul_dtype=(torch.bfloat16 if cfg.eval_matmul_dtype == "bfloat16"
                       else torch.float32),
         row_block=cfg.eval_row_block if cfg.eval_row_block > 0 else None,

@@ -138,17 +138,24 @@ def orthogonal_loss(mapping, eye):
 
 
 def space_mapping_loss(view_embeds, shared_embeds, mapping, eye,
-                       orthogonal_weight, norm_w=0.0001, mask=None):
+                       orthogonal_weight, norm_w=0.0001, mask=None,
+                       batch_sum=None, regularize: bool = True):
     """The mapped view embeddings are normalized by the l2 norm of the WHOLE
-    batch tensor (the reference's axis-less tf.nn.l2_normalize)."""
+    batch tensor (the reference's axis-less tf.nn.l2_normalize).
+
+    With the batch split over ranks: ``batch_sum`` sums the norm over them
+    (``params.l2_normalize``), and the batch-independent orthogonal and norm
+    terms are counted on one rank only (``regularize`` False elsewhere)."""
     mapped = view_embeds @ mapping
     if mask is not None:
         mapped = mapped * mask[:, None]  # keep padded rows out of the norm
-    mapped = l2_normalize(mapped, axis=None)
+    mapped = l2_normalize(mapped, axis=None, batch_sum=batch_sum)
     d = _sq_norm(shared_embeds - mapped)
     if mask is not None:
         d = d * mask
     map_loss = torch.sum(d)
+    if not regularize:
+        return map_loss
     norm_loss = torch.sum(torch.square(mapping))
     return map_loss + orthogonal_weight * orthogonal_loss(mapping, eye) + \
         norm_w * norm_loss

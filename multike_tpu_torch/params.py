@@ -23,13 +23,18 @@ from multike_tpu_torch.utils.device import resolve_device
 EPS_L2 = 1e-12  # tf.nn.l2_normalize epsilon
 
 
-def l2_normalize(x: torch.Tensor, axis=None) -> torch.Tensor:
+def l2_normalize(x: torch.Tensor, axis=None, batch_sum=None) -> torch.Tensor:
     """tf.nn.l2_normalize semantics: ``x * rsqrt(max(sum(x^2), eps))``.
 
     ``axis=None`` normalizes over the whole tensor. This is not
-    ``F.normalize``, which divides by ``max(norm, eps)``."""
+    ``F.normalize``, which divides by ``max(norm, eps)``. ``batch_sum``
+    (``axis=None`` only): a function that sums the sum of squares over the
+    parts of a batch that other ranks hold, so a part is normalized by the
+    whole batch's norm."""
     if axis is None:
         sq = torch.sum(torch.square(x))
+        if batch_sum is not None:
+            sq = batch_sum(sq)
     else:
         sq = torch.sum(torch.square(x), dim=axis, keepdim=True)
     return x * torch.rsqrt(torch.clamp_min(sq, EPS_L2))

@@ -24,11 +24,14 @@ class MultiKE_ITC(MultiKETrainer):
     def run(self):
         """The epoch loop; an exception or interrupt still leaves a
         resumable ``itc_interrupt`` checkpoint when ``checkpoint_dir`` is
-        set."""
+        set (on a mesh only when the save needs no collective)."""
         try:
             return self._run()
         except BaseException:
-            if self.cfg.checkpoint_dir:
+            # not where the save would take a collective: the other ranks
+            # would never join it
+            if self.cfg.checkpoint_dir and \
+                    not self.checkpoint_needs_collective():
                 self.save_checkpoint_tag("itc_interrupt", -1)
                 self._log("interrupted: wrote itc_interrupt checkpoint")
             raise

@@ -23,11 +23,15 @@ class MultiKE_SSL(MultiKETrainer):
 
     def run(self):
         """Both phases; an exception or interrupt still leaves a resumable
-        ``ssl_interrupt`` checkpoint when ``checkpoint_dir`` is set."""
+        ``ssl_interrupt`` checkpoint when ``checkpoint_dir`` is set (on a
+        mesh only when the save needs no collective)."""
         try:
             return self._run()
         except BaseException:
-            if self.cfg.checkpoint_dir:
+            # not where the save would take a collective: the other ranks
+            # would never join it
+            if self.cfg.checkpoint_dir and \
+                    not self.checkpoint_needs_collective():
                 self.save_checkpoint_tag("ssl_interrupt", -1)
                 self._log("interrupted: wrote ssl_interrupt checkpoint")
             raise

@@ -23,6 +23,17 @@ on either of two same-math paths:
     dense Adagrad, or Adam, Adadelta or SGD (train/optimizers.py), which
     always take this path, as in the JAX package.
 
+With a ``MeshContext`` (``pctx``, parallel/context.py) a step runs on a
+('dp', 'tp') mesh of ranks: every rank draws the whole batch with its own
+generator, seeded alike, takes its dp block of the loss's leading axis (a
+stream's ``shard``), gathers the rows that block uses (over tp when the
+table is row-sharded), and sums its loss and dense gradients with the other
+dp ranks in one all-reduce; the row gradients go to
+``row_apply_sharded``. The losses are sums over the batch but for two
+whole-batch norms (the conv scorer's and space_mapping's), summed over the
+ranks by a differentiable all-reduce, and space_mapping's
+batch-independent terms, counted on the first dp rank only.
+
 Parameters and accumulators are updated in place. Unlike the JAX package,
 the sampled streams draw from their lists' true length: there are no
 capacity buckets (those only spared XLA a recompile, and their wrap
@@ -55,6 +66,8 @@ from multike_tpu_torch.losses import (alignment_loss,
                                       positive_logistic_from_scores,
                                       relation_logistic_loss_wo_negs,
                                       space_mapping_loss)
+from multike_tpu_torch.parallel import distributed
+from multike_tpu_torch.parallel.context import gather_rows, row_apply_sharded
 from multike_tpu_torch.params import l2_normalize, lookup_norm_fast
 from multike_tpu_torch.sampling import (TripleFilter, sample_corruptions,
                                         sample_shared_corruptions,
@@ -106,12 +119,12 @@ def stream_lr(cfg: Config, stream: str) -> float:
         else cfg.learning_rate
 
 
-def init_stream_opt_states(cfg: Config, params) -> Dict:
+def init_stream_opt_states(cfg: Config, params, pctx=None) -> Dict:
     """Per-stream optimizer states: Adagrad accumulator dicts
     (format-compatible with both the row-sparse and the dense apply), or
     the Adam / Adadelta / SGD states of ``train/optimizers.py`` over the
-    stream's variables."""
-    if cfg.optimizer == "Adagrad":
+    stream's variables. A mesh (``pctx``) always takes the accumulators."""
+    if pctx is not None or cfg.optimizer == "Adagrad":
         return {stream: {k: sparse_adagrad.init_acc(params[k])
                          for k in names}
                 for stream, names in STREAM_VARS.items()}
@@ -140,8 +153,23 @@ def _grad_leaf(tree):
     return tree.detach().requires_grad_()
 
 
+def _dp_shard(pctx, *batch):
+    """The rank's dp block of each batch tensor's leading axis (constants
+    dicts and None pass through)."""
+    return tuple(x if x is None or isinstance(x, dict)
+                 else x[pctx.dp_block(x.shape[0])] for x in batch)
+
+
+def _batch_sum(pctx):
+    """The differentiable sum over the dp ranks that the whole-batch norms
+    take (None without a mesh)."""
+    if pctx is None:
+        return None
+    return lambda x: distributed.all_reduce_sum(x, pctx.dp_group)
+
+
 def _make_stream_update(cfg: Config, stream: str, prep, loss_fn,
-                        frozen: Tuple[str, ...] = ()):
+                        frozen: Tuple[str, ...] = (), pctx=None, shard=None):
     """Build ``update(params, opt_state, *batch) -> loss`` (a detached
     0-dim tensor); ``params`` and ``opt_state`` are updated in place.
 
@@ -153,35 +181,74 @@ def _make_stream_update(cfg: Config, stream: str, prep, loss_fn,
     ``frozen``: tables the loss reads without training them (the JAX
     package's ``stopped`` reads). The loss then gets, in place of prep's
     ``aux``, their RAW rows at the first row table's ids, without
-    gradient: ``aux[t]``."""
+    gradient: ``aux[t]``.
+    ``pctx``: the mesh (row-sparse Adagrad only). ``batch`` is then the
+    whole batch and ``shard(pctx, *batch)`` (default: the dp block of every
+    tensor's leading axis) this rank's part; the returned loss is the whole
+    batch's."""
     row_tables, dense_names = STREAM_SPEC[stream]
     names = row_tables + dense_names
     lr = stream_lr(cfg, stream)
     adagrad = cfg.optimizer == "Adagrad"
+    if pctx is not None and (not adagrad or cfg.row_sparse_updates in
+                             (False, "off", "false")):
+        raise ValueError("mesh training runs on the row-sparse Adagrad path: "
+                         "optimizer must be Adagrad and row_sparse_updates "
+                         "not off")
+    shard = shard or _dp_shard
 
     def update(params, opt_state, *batch):
+        if pctx is not None:
+            batch = shard(pctx, *batch)
         ids, aux = prep(*batch)
         if frozen:
             with torch.no_grad():
-                aux = {t: params[t][ids[row_tables[0]]] for t in frozen}
-        sparse = use_row_sparse(cfg, params[row_tables[0]].shape[0],
-                                ids_count=ids[row_tables[0]].shape[0])
+                aux = {t: gather_rows(pctx, t, params[t], ids[row_tables[0]])
+                       for t in frozen}
+        sparse = pctx is not None or use_row_sparse(
+            cfg, params[row_tables[0]].shape[0],
+            ids_count=ids[row_tables[0]].shape[0])
         if sparse:
-            rows = {t: params[t][ids[t]].requires_grad_() for t in row_tables}
+            rows = {t: gather_rows(pctx, t, params[t], ids[t]).requires_grad_()
+                    for t in row_tables}
             dense = {k: _grad_leaf(params[k]) for k in dense_names}
             loss = loss_fn(rows, dense, aux, *batch)
             grads = torch.autograd.grad(
                 loss, list(rows.values()) + _leaves(dense))
-            g_dense = iter(grads[len(row_tables):])
+            loss = loss.detach()
+            g_dense = grads[len(row_tables):]
+            sizes = {}
+            if pctx is not None:
+                # one sum over dp: the whole batch's loss, every rank's id
+                # count of each row table (in its own slot) and the dense
+                # gradients
+                counts = torch.zeros(len(row_tables), pctx.dp,
+                                     device=loss.device)
+                for i, t in enumerate(row_tables):
+                    counts[i, pctx.dp_index] = ids[t].shape[0]
+                flat = distributed.all_reduce(torch.cat(
+                    [loss.reshape(1), counts.reshape(-1)]
+                    + [g.reshape(-1) for g in g_dense]), pctx.dp_group)
+                loss = flat[0]
+                for i, t in enumerate(row_tables):
+                    sizes[t] = flat[1 + i * pctx.dp:1 + (i + 1) * pctx.dp
+                                    ].long().tolist()
+                g_dense = [x.view_as(g) for x, g in zip(flat[1 + counts.numel():]
+                           .split([g.numel() for g in g_dense]), g_dense)]
+            g_dense = iter(g_dense)
             with torch.no_grad():
                 for t, g in zip(row_tables, grads):
-                    sparse_adagrad.row_apply(params[t], opt_state[t], ids[t],
-                                             g, lr)
+                    if pctx is not None:
+                        row_apply_sharded(pctx, t, params[t], opt_state[t],
+                                          ids[t], g, lr, sizes[t])
+                    else:
+                        sparse_adagrad.row_apply(params[t], opt_state[t],
+                                                 ids[t], g, lr)
                 for k in dense_names:
                     sparse_adagrad.dense_apply(
                         params[k], opt_state[k], _rebuild(dense[k], g_dense),
                         lr)
-            return loss.detach()
+            return loss
 
         leaves = {k: _grad_leaf(params[k]) for k in names}
         rows = {t: leaves[t][ids[t]] for t in row_tables}
@@ -274,7 +341,12 @@ class RelViewEpoch:
     ``epoch(params, opt_state, gen, triples1, triples2, neighbors=None) ->
     loss sum`` trains in place; ``step(params, opt_state, pos1, m1, ch1,
     ct1, pos2, m2, ch2, ct2) -> loss`` is one batch with injected positives
-    (bsp, 3), masks (bsp,) and pools (nc, C)."""
+    (bsp, 3), masks (bsp,) and pools (nc, C).
+
+    On a mesh each dp rank takes its block of every chunk's rows, with the
+    chunk's whole pools (:meth:`shard`): the pool rows' gradients of the
+    ranks sum in the sparse apply, as the positives' terms sum in the
+    loss."""
 
     scheme = "chunk_shared"
     dropped = None            # no per-slot drop count in this scheme
@@ -282,7 +354,7 @@ class RelViewEpoch:
     def __init__(self, cfg: Config, n1: int, n2: int,
                  ranges: Tuple[Tuple[int, int], Tuple[int, int]],
                  with_neighbors: bool = False,
-                 tfilter: TripleFilter | None = None):
+                 tfilter: TripleFilter | None = None, pctx=None):
         self.n1, self.n2, self.ranges = n1, n2, ranges
         self.with_neighbors = with_neighbors
         self.tfilter = tfilter if cfg.chunk_exact_rejection else None
@@ -303,7 +375,19 @@ class RelViewEpoch:
         self.trained_per_epoch = min(n1, self.steps * self.bs1) + \
             min(n2, self.steps * self.bs2)
         self._update = _make_stream_update(cfg, "rel_view", self._prep,
-                                           self._loss)
+                                           self._loss, pctx=pctx,
+                                           shard=self.shard)
+
+    def shard(self, pctx, pos1, m1, ch1, ct1, pos2, m2, ch2, ct2):
+        """This dp rank's block of the rows of every chunk, with all the
+        pools."""
+        out = []
+        for pos, m, ch, ct, nc, s in ((pos1, m1, ch1, ct1, self.nc1, self.s1),
+                                      (pos2, m2, ch2, ct2, self.nc2, self.s2)):
+            sl = pctx.dp_block(s)
+            out += [pos.reshape(nc, s, 3)[:, sl].reshape(-1, 3),
+                    m.reshape(nc, s)[:, sl].reshape(-1), ch, ct]
+        return out
 
     def chunk_keep_masks(self, pos, ch, ct, nc, s):
         """Bloom keep masks of one KG's two pools, each (nc, s, C):
@@ -321,8 +405,10 @@ class RelViewEpoch:
     def _prep(self, pos1, m1, ch1, ct1, pos2, m2, ch2, ct2):
         parts = [pos1[:, 0], pos1[:, 2], ch1.reshape(-1), ct1.reshape(-1),
                  pos2[:, 0], pos2[:, 2], ch2.reshape(-1), ct2.reshape(-1)]
-        keep = (self.chunk_keep_masks(pos1, ch1, ct1, self.nc1, self.s1),
-                self.chunk_keep_masks(pos2, ch2, ct2, self.nc2, self.s2))
+        # (a mesh rank holds s / dp rows of each chunk)
+        keep = tuple(self.chunk_keep_masks(pos, ch, ct, ch.shape[0],
+                                           pos.shape[0] // ch.shape[0])
+                     for pos, ch, ct in ((pos1, ch1, ct1), (pos2, ch2, ct2)))
         return {"rv_ent": torch.cat(parts)}, keep
 
     def _loss(self, rows, dense, aux, pos1, m1, ch1, ct1, pos2, m2, ch2, ct2):
@@ -331,14 +417,16 @@ class RelViewEpoch:
         prs_all = lookup_norm_fast(dense["rel"],
                                    torch.cat([pos1[:, 1], pos2[:, 1]]))
         prs1, prs2 = prs_all[:pos1.shape[0]], prs_all[pos1.shape[0]:]
-        ph1, pt1, ch1r, ct1r, ph2, pt2, ch2r, ct2r = _split(rv_rows,
-                                                            self.sizes)
+        # the sizes of the rows in hand: a mesh rank holds s / dp rows of
+        # each chunk
+        sizes = [n for pos, ch in ((pos1, ch1), (pos2, ch2))
+                 for n in (pos.shape[0], pos.shape[0], ch.numel(), ch.numel())]
+        ph1, pt1, ch1r, ct1r, ph2, pt2, ch2r, ct2r = _split(rv_rows, sizes)
         loss = torch.zeros((), dtype=rv_rows.dtype, device=rv_rows.device)
-        for bs, nc, s, ph, pr, pt, chr_, ctr, m, (keep_h, keep_t) in (
-                (self.bs1, self.nc1, self.s1, ph1, prs1, pt1, ch1r, ct1r, m1,
-                 aux[0]),
-                (self.bs2, self.nc2, self.s2, ph2, prs2, pt2, ch2r, ct2r, m2,
-                 aux[1])):
+        for bs, nc, ph, pr, pt, chr_, ctr, m, (keep_h, keep_t) in (
+                (self.bs1, self.nc1, ph1, prs1, pt1, ch1r, ct1r, m1, aux[0]),
+                (self.bs2, self.nc2, ph2, prs2, pt2, ch2r, ct2r, m2, aux[1])):
+            s = ph.shape[0] // nc
             if bs > 0:
                 loss = loss + chunk_shared_relation_logistic_loss(
                     ph.reshape(nc, s, dim), pr.reshape(nc, s, dim),
@@ -422,7 +510,7 @@ class PerSlotRelViewEpoch:
     def __init__(self, cfg: Config, n1: int, n2: int,
                  ranges: Tuple[Tuple[int, int], Tuple[int, int]],
                  with_neighbors: bool = False,
-                 tfilter: TripleFilter | None = None):
+                 tfilter: TripleFilter | None = None, pctx=None):
         self.n1, self.n2, self.ranges = n1, n2, ranges
         self.with_neighbors = with_neighbors
         self.tfilter = tfilter
@@ -440,7 +528,7 @@ class PerSlotRelViewEpoch:
                           or self.reject_mode == "drop")
         self.dropped = None
         self._update = _make_stream_update(cfg, "rel_view", self._prep,
-                                           self._loss)
+                                           self._loss, pctx=pctx)
 
     def _prep(self, pos1, m1, cand1, hb1, keep1, pos2, m2, cand2, hb2,
               keep2):
@@ -455,15 +543,18 @@ class PerSlotRelViewEpoch:
         prs_all = lookup_norm_fast(dense["rel"],
                                    torch.cat([pos1[:, 1], pos2[:, 1]]))
         prs1, prs2 = prs_all[:pos1.shape[0]], prs_all[pos1.shape[0]:]
-        ph1, pt1, c1, ph2, pt2, c2 = _split(rv_rows, self.sizes)
+        # the rows in hand: a mesh rank holds its dp block of each KG's
+        sizes = [n for pos, cand in ((pos1, cand1), (pos2, cand2))
+                 for n in (pos.shape[0], pos.shape[0], cand.numel())]
+        ph1, pt1, c1, ph2, pt2, c2 = _split(rv_rows, sizes)
         loss = torch.zeros((), dtype=rv_rows.dtype, device=rv_rows.device)
         for bs, ph, pr, pt, c, hb, keep, m in (
                 (self.bs1, ph1, prs1, pt1, c1, hb1, keep1, m1),
                 (self.bs2, ph2, prs2, pt2, c2, hb2, keep2, m2)):
             if bs > 0:
                 loss = loss + lean_relation_logistic_loss(
-                    ph, pr, pt, c.reshape(bs, self.neg_num, dim), hb, m,
-                    neg_keep=keep)
+                    ph, pr, pt, c.reshape(ph.shape[0], self.neg_num, dim),
+                    hb, m, neg_keep=keep)
         return loss
 
     def step(self, params, opt_state, pos1, m1, cand1, hb1, keep1, pos2, m2,
@@ -535,13 +626,13 @@ class PerSlotRelViewEpoch:
 def build_rel_view_epoch(cfg: Config, n1: int, n2: int,
                          ranges: Tuple[Tuple[int, int], Tuple[int, int]],
                          with_neighbors: bool = False,
-                         tfilter: TripleFilter | None = None):
+                         tfilter: TripleFilter | None = None, pctx=None):
     """Relation-view epoch, uniform phase or (``with_neighbors``) truncated
     phase, in the phase's scheme (``neg_scheme`` / ``truncated_neg_scheme``).
     ``tfilter``: the Bloom filter of the true triples, read by per-slot
-    rejection and by ``chunk_exact_rejection``. Returns ``(epoch, steps,
-    trained_per_epoch)``; ``epoch`` is a :class:`RelViewEpoch` or a
-    :class:`PerSlotRelViewEpoch`."""
+    rejection and by ``chunk_exact_rejection``. ``pctx``: the mesh, if
+    any. Returns ``(epoch, steps, trained_per_epoch)``; ``epoch`` is a
+    :class:`RelViewEpoch` or a :class:`PerSlotRelViewEpoch`."""
     if cfg.truncated_neg_scheme not in ("per_slot", "chunk_shared"):
         raise ValueError(f"truncated_neg_scheme must be 'per_slot' or "
                          f"'chunk_shared', got {cfg.truncated_neg_scheme!r}")
@@ -553,7 +644,7 @@ def build_rel_view_epoch(cfg: Config, n1: int, n2: int,
                          f"got {cfg.neg_reject_mode!r}")
     scheme = cfg.truncated_neg_scheme if with_neighbors else cfg.neg_scheme
     cls = PerSlotRelViewEpoch if scheme == "per_slot" else RelViewEpoch
-    epoch = cls(cfg, n1, n2, ranges, with_neighbors, tfilter)
+    epoch = cls(cfg, n1, n2, ranges, with_neighbors, tfilter, pctx)
     return epoch, epoch.steps, epoch.trained_per_epoch
 
 
@@ -571,7 +662,7 @@ class AttrViewEpoch:
     trains in place; ``step(params, opt_state, constants, trip, w, mask)``
     is one injected batch of both KGs' triples (B, 3), weights and mask."""
 
-    def __init__(self, cfg: Config, n1: int, n2: int):
+    def __init__(self, cfg: Config, n1: int, n2: int, pctx=None):
         self.n1, self.n2 = n1, n2
         self.steps = int(np.ceil((n1 + n2) / cfg.batch_size))
         self.bs1, self.bs2 = proportional_sizes(n1, n2,
@@ -586,10 +677,12 @@ class AttrViewEpoch:
             phs = l2_normalize(rows["av_ent"], axis=-1)
             pas = dense["attr"][trip[:, 1]]          # unnormalized
             pvs = constants["literal_embeds"][trip[:, 2]]
-            score = conv_score(dense["conv_av"], phs, pas, pvs, mask=mask)
+            score = conv_score(dense["conv_av"], phs, pas, pvs, mask=mask,
+                               batch_sum=_batch_sum(pctx))
             return positive_logistic_from_scores(score, weights=w, mask=mask)
 
-        self.step = _make_stream_update(cfg, "attr_view", prep, loss_fn)
+        self.step = _make_stream_update(cfg, "attr_view", prep, loss_fn,
+                                        pctx=pctx)
 
     def draw(self, gen: torch.Generator, trips1, w1, trips2, w2):
         """Every step's (triples, weights, mask) for one epoch, each stacked
@@ -613,8 +706,8 @@ class AttrViewEpoch:
         return total
 
 
-def build_attr_view_epoch(cfg: Config, n1: int, n2: int):
-    epoch = AttrViewEpoch(cfg, n1, n2)
+def build_attr_view_epoch(cfg: Config, n1: int, n2: int, pctx=None):
+    epoch = AttrViewEpoch(cfg, n1, n2, pctx)
     return epoch, epoch.steps, epoch.trained_per_epoch
 
 
@@ -630,12 +723,13 @@ class SampledEpoch:
     loss`` is one injected batch (each data array sliced alike)."""
 
     def __init__(self, cfg: Config, stream: str, n: int, batch_size: int,
-                 prep, loss_fn, frozen: Tuple[str, ...] = ()):
+                 prep, loss_fn, frozen: Tuple[str, ...] = (), pctx=None):
         self.n = n
         self.steps = max(1, int(np.ceil(n / batch_size)))
         self.bs = batch_size if self.steps > 1 else n
         self.trained_per_epoch = self.steps * self.bs
-        self.step = _make_stream_update(cfg, stream, prep, loss_fn, frozen)
+        self.step = _make_stream_update(cfg, stream, prep, loss_fn, frozen,
+                                        pctx)
 
     def __call__(self, params, opt_state, gen: torch.Generator, *data,
                  constants=None):
@@ -650,8 +744,9 @@ class SampledEpoch:
 
 
 def _sampled(cfg: Config, stream: str, n: int, batch_size: int, prep,
-             loss_fn, frozen: Tuple[str, ...] = ()):
-    epoch = SampledEpoch(cfg, stream, n, batch_size, prep, loss_fn, frozen)
+             loss_fn, frozen: Tuple[str, ...] = (), pctx=None):
+    epoch = SampledEpoch(cfg, stream, n, batch_size, prep, loss_fn, frozen,
+                         pctx)
     return epoch, epoch.steps, epoch.trained_per_epoch
 
 
@@ -660,7 +755,7 @@ def _rv_pair_ids(pos, *rest):
     return {"rv_ent": torch.cat([pos[:, 0], pos[:, 2]])}, None
 
 
-def build_ckge_rel_epoch(cfg: Config, n: int):
+def build_ckge_rel_epoch(cfg: Config, n: int, pctx=None):
     """Cross-KG entity inference in the relation view: the swapped
     supervision triples, positives only, loss weight 2. Returns ``(epoch,
     steps, trained_per_epoch)``; ``epoch(params, opt_state, gen, triples)``.
@@ -672,10 +767,10 @@ def build_ckge_rel_epoch(cfg: Config, n: int):
         return 2.0 * relation_logistic_loss_wo_negs(phs, prs, pts)
 
     return _sampled(cfg, "ckge_rel", n, cfg.batch_size, _rv_pair_ids,
-                    loss_fn)
+                    loss_fn, pctx=pctx)
 
 
-def build_ckgp_rel_epoch(cfg: Config, n: int):
+def build_ckgp_rel_epoch(cfg: Config, n: int, pctx=None):
     """Cross-KG relation inference: the predicate-aligned supervision
     4-tuples, weighted, loss weight 2. ``epoch(params, opt_state, gen, ids,
     weights)``."""
@@ -686,46 +781,46 @@ def build_ckgp_rel_epoch(cfg: Config, n: int):
         return 2.0 * logistic_loss_wo_negs(phs, prs, pts, w)
 
     return _sampled(cfg, "ckgp_rel", n, cfg.batch_size, _rv_pair_ids,
-                    loss_fn)
+                    loss_fn, pctx=pctx)
 
 
 def _av_head_ids(constants, pos, *rest):
     return {"av_ent": pos[:, 0]}, None
 
 
-def _conv_scores(dense, conv, rows, constants, pos):
+def _conv_scores(dense, conv, rows, constants, pos, pctx):
     phs = l2_normalize(rows["av_ent"], axis=-1)
     pas = dense["attr"][pos[:, 1]]
     pvs = constants["literal_embeds"][pos[:, 2]]
-    return conv_score(dense[conv], phs, pas, pvs)
+    return conv_score(dense[conv], phs, pas, pvs, batch_sum=_batch_sum(pctx))
 
 
-def build_ckge_attr_epoch(cfg: Config, n: int):
+def build_ckge_attr_epoch(cfg: Config, n: int, pctx=None):
     """Cross-KG entity inference in the attribute view: the swapped
     supervision attribute triples, loss weight 2. ``epoch(params,
     opt_state, gen, triples, constants=...)``."""
     def loss_fn(rows, dense, aux, constants, pos):
         return 2.0 * positive_logistic_from_scores(
-            _conv_scores(dense, "conv_ckge", rows, constants, pos))
+            _conv_scores(dense, "conv_ckge", rows, constants, pos, pctx))
 
     return _sampled(cfg, "ckge_attr", n, cfg.attribute_batch_size,
-                    _av_head_ids, loss_fn)
+                    _av_head_ids, loss_fn, pctx=pctx)
 
 
-def build_ckga_attr_epoch(cfg: Config, n: int):
+def build_ckga_attr_epoch(cfg: Config, n: int, pctx=None):
     """Cross-KG attribute inference: the predicate-aligned supervision
     attribute 4-tuples, weighted. ``epoch(params, opt_state, gen, ids,
     weights, constants=...)``."""
     def loss_fn(rows, dense, aux, constants, pos, w):
         return positive_logistic_from_scores(
-            _conv_scores(dense, "conv_ckga", rows, constants, pos),
+            _conv_scores(dense, "conv_ckga", rows, constants, pos, pctx),
             weights=w)
 
     return _sampled(cfg, "ckga_attr", n, cfg.attribute_batch_size,
-                    _av_head_ids, loss_fn)
+                    _av_head_ids, loss_fn, pctx=pctx)
 
 
-def build_common_space_epoch(cfg: Config, n: int):
+def build_common_space_epoch(cfg: Config, n: int, pctx=None):
     """ITC combination: cv_weight * (cv_name_weight * ||e - n||^2 +
     ||e - r||^2 + ||e - a||^2) over a batch of entities, updating the
     shared, relation-view and attribute-view tables (three row-sparse
@@ -747,10 +842,10 @@ def build_common_space_epoch(cfg: Config, n: int):
         return cvw * loss
 
     return _sampled(cfg, "common_space", n, cfg.entity_batch_size, prep,
-                    loss_fn)
+                    loss_fn, pctx=pctx)
 
 
-def build_space_mapping_epoch(cfg: Config, n: int):
+def build_space_mapping_epoch(cfg: Config, n: int, pctx=None):
     """SSL combination: map each view into the shared space, ``ent``,
     through its own mapping (whole-batch-normalized mapped rows, an
     orthogonality penalty of weight ``orthogonal_weight``). Only the shared
@@ -758,6 +853,9 @@ def build_space_mapping_epoch(cfg: Config, n: int):
     ``rv_ent`` and ``av_ent`` are frozen reads. ``epoch(params, opt_state,
     gen, entities, constants=...)``."""
     ow = cfg.orthogonal_weight
+    # on a mesh: whole-batch norms, and the regularizers on dp rank 0 only
+    kw = dict(batch_sum=_batch_sum(pctx),
+              regularize=pctx is None or pctx.dp_index == 0)
 
     def prep(constants, ents):
         return {"ent": ents}, None
@@ -767,14 +865,14 @@ def build_space_mapping_epoch(cfg: Config, n: int):
         eye = torch.eye(final.shape[-1], dtype=final.dtype,
                         device=final.device)
         loss = space_mapping_loss(constants["name_embeds"][ents], final,
-                                  dense["nv_mapping"], eye, ow)
+                                  dense["nv_mapping"], eye, ow, **kw)
         loss = loss + space_mapping_loss(
             l2_normalize(frozen["rv_ent"], axis=-1), final,
-            dense["rv_mapping"], eye, ow)
+            dense["rv_mapping"], eye, ow, **kw)
         loss = loss + space_mapping_loss(
             l2_normalize(frozen["av_ent"], axis=-1), final,
-            dense["av_mapping"], eye, ow)
+            dense["av_mapping"], eye, ow, **kw)
         return loss
 
     return _sampled(cfg, "space_mapping", n, cfg.entity_batch_size, prep,
-                    loss_fn, frozen=("rv_ent", "av_ent"))
+                    loss_fn, frozen=("rv_ent", "av_ent"), pctx=pctx)

@@ -16,7 +16,11 @@ Differences from the JAX package, by design:
     PRNG key, and a resumed run reseeds its generator from the two;
   * per-slot "resample" rejection decides on the host, after each round,
     whether to go on (one device sync per round), where the JAX package
-    runs a device-side while loop.
+    runs a device-side while loop;
+  * on a mesh (``mesh_dp * mesh_tp > 1``, one process per rank, see
+    parallel/context.py) every rank keeps the whole triple arrays, since
+    its batch block comes from a permutation of the whole list drawn alike
+    on every rank; the JAX package edge-partitions them over processes.
 """
 from __future__ import annotations
 
@@ -30,6 +34,8 @@ import torch
 from multike_tpu_torch import persistence
 from multike_tpu_torch.config import Config
 from multike_tpu_torch.data.kg import triples_to_array
+from multike_tpu_torch.parallel import distributed
+from multike_tpu_torch.parallel.context import ROW_SHARDED_TABLES, MeshContext
 from multike_tpu_torch.params import init_params, l2_normalize
 from multike_tpu_torch.sampling import (NeighborState, build_triple_filter,
                                         empty_neighbor_state)
@@ -70,24 +76,34 @@ class MultiKETrainer:
         """``data``: a ``data.dataset.DataModel``, or anything with its
         ``kgs`` (the streams that read the name or literal vectors then
         cannot run). ``device``: where the tables live and the epochs run
-        (default: the card; ``"cpu"`` runs the kernels' plain versions)."""
+        (default: the card, ``cuda:LOCAL_RANK`` on a mesh; ``"cpu"`` runs
+        the kernels' plain versions).
+
+        ``mesh_dp * mesh_tp > 1`` trains on a mesh of that many ranks, one
+        process each, in an initialized process group
+        (``parallel.distributed.init_distributed``); the entity tables are
+        padded and row-sharded over tp."""
         if cfg.alignment_module != "swapping":
             raise ValueError("cross-KG inference requires swapping mode")
-        if cfg.mesh_dp * cfg.mesh_tp > 1:
-            raise NotImplementedError(
-                "mesh training (mesh_dp * mesh_tp > 1) arrives with the "
-                "multi-GPU slice of the port")
         self.cfg = cfg
         self.data = data
         self.kgs = data.kgs
         self.predicate_align_model = predicate_align_model
         self.verbose = verbose
+        if cfg.mesh_dp * cfg.mesh_tp > 1:
+            device = distributed.rank_device(device)
         self.device = resolve_device(device)
+        self.pctx = MeshContext.from_config(cfg, self.device)
 
         kgs = self.kgs
         self.params = init_params(cfg, kgs.entities_num, kgs.relations_num,
                                   kgs.attributes_num, device=self.device)
-        self.opt_states = streams.init_stream_opt_states(cfg, self.params)
+        if self.pctx is not None:
+            for t in ROW_SHARDED_TABLES:
+                self.params[t] = self.pctx.pad_table_rows(self.params[t])
+            self.params = self.pctx.shard_params(self.params)
+        self.opt_states = streams.init_stream_opt_states(cfg, self.params,
+                                                         self.pctx)
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(cfg.seed)
         self.constants = {
@@ -124,7 +140,9 @@ class MultiKETrainer:
         # host list -> device tensor, cached on list identity (see
         # _cached_array)
         self._arr_cache: Dict = {}
-        self.metrics = MetricsLog(cfg.metrics_log_path or None)
+        # one log file for a mesh: rank 0's (every rank keeps its records)
+        self.metrics = MetricsLog((cfg.metrics_log_path or None)
+                                  if distributed.rank() == 0 else None)
         self._log(f"device memory estimate: {self.memory_estimate_mb():.0f} "
                   "MB (tables + per-stream optimizer states + neighbor "
                   "table)")
@@ -154,10 +172,10 @@ class MultiKETrainer:
                 n1, n2, with_nbr = shape_key
                 fn = streams.build_rel_view_epoch(
                     self.cfg, n1, n2, self.ranges, with_neighbors=with_nbr,
-                    tfilter=self.triple_filter)
+                    tfilter=self.triple_filter, pctx=self.pctx)
             else:
-                fn = getattr(streams, f"build_{kind}_epoch")(self.cfg,
-                                                              *shape_key)
+                fn = getattr(streams, f"build_{kind}_epoch")(
+                    self.cfg, *shape_key, pctx=self.pctx)
             self._epoch_fns[key] = fn
         return self._epoch_fns[key]
 
@@ -330,7 +348,7 @@ class MultiKETrainer:
         embeddings of each KG's useful entities, on the device."""
         t1 = time.time()
         kgs = self.kgs
-        rv = l2_normalize(self.params["rv_ent"], axis=1)
+        rv = l2_normalize(self._table("rv_ent"), axis=1)
         u1, u2 = (torch.as_tensor(u, dtype=torch.long, device=self.device)
                   for u in (kgs.useful_entities_list1,
                             kgs.useful_entities_list2))
@@ -350,6 +368,16 @@ class MultiKETrainer:
     # ------------------------------------------------------------------
     # embedding access (normalized reads, like the reference's tensor reads)
     # ------------------------------------------------------------------
+    def _table(self, name: str) -> torch.Tensor:
+        """A whole table on this rank's device: a row-sharded one is
+        gathered over tp (a collective every rank of the mesh must reach)
+        and stripped of its padding rows."""
+        if self.pctx is None:
+            return self.params[name]
+        full = self.pctx.gather_table(self.params[name], name)
+        return full[:self.kgs.entities_num] if self.pctx.sharded(name) \
+            else full
+
     def current_embeds_device(self, which: str) -> torch.Tensor:
         """Normalized view embeddings (the name view as it is), left on the
         device."""
@@ -358,7 +386,7 @@ class MultiKETrainer:
         tables = {"rv": "rv_ent", "av": "av_ent", "final": "ent"}
         if which not in tables:
             raise KeyError(which)
-        return l2_normalize(self.params[tables[which]], axis=1)
+        return l2_normalize(self._table(tables[which]), axis=1)
 
     def current_embeds(self, which: str) -> np.ndarray:
         if which == "rel":
@@ -373,22 +401,61 @@ class MultiKETrainer:
     def checkpoint_path(self, tag: str) -> str:
         return os.path.join(self.cfg.checkpoint_dir, f"{tag}.npz")
 
+    def checkpoint_needs_collective(self) -> bool:
+        """True when writing a checkpoint takes a collective (the tp-sharded
+        tables are gathered). An interrupt handler must not try such a save:
+        only the raising rank would enter the gather while the others sit in
+        the epoch loop, a hang instead of an exit."""
+        return self.pctx is not None and self.pctx.tp > 1
+
+    def _full_state(self):
+        """(params, opt_states) with whole (padded) tables: gathered over tp
+        on a mesh, a collective every rank must reach."""
+        if self.pctx is None:
+            return self.params, self.opt_states
+        return (self.pctx.gather_tree(self.params),
+                {s: self.pctx.gather_tree(st)
+                 for s, st in self.opt_states.items()})
+
     def save_checkpoint_tag(self, tag: str, epoch: int):
-        if self.cfg.checkpoint_dir:
-            persistence.save_checkpoint(self.checkpoint_path(tag),
-                                        self.params, self.opt_states,
-                                        self.cfg.seed, epoch)
+        """Write the checkpoint; on a mesh every rank gathers, rank 0
+        writes (``checkpoint_dir`` must be shared by the ranks)."""
+        if not self.cfg.checkpoint_dir:
+            return
+        params, opt_states = self._full_state()
+        if distributed.rank() == 0:
+            persistence.save_checkpoint(self.checkpoint_path(tag), params,
+                                        opt_states, self.cfg.seed, epoch)
 
     def try_resume(self, tag: str) -> int:
         """Restore the tables and accumulators from a checkpoint if there is
-        one; returns the epoch to resume after (0 = fresh start)."""
+        one; returns the epoch to resume after (0 = fresh start). On a mesh
+        every rank reads the whole checkpoint and keeps its shard; a
+        checkpoint that some ranks see and others do not (a
+        ``checkpoint_dir`` that is not shared) raises."""
         if not self.cfg.checkpoint_dir:
             return 0
         path = self.checkpoint_path(tag)
-        if not os.path.exists(path):
+        exists = os.path.exists(path)
+        if self.pctx is not None:
+            flags = distributed.all_gather(torch.tensor(
+                [int(exists)], dtype=torch.int32, device=self.device))
+            if int(flags.min()) != int(flags.max()):
+                raise RuntimeError(
+                    f"checkpoint {path} is visible on some ranks but not "
+                    "others: checkpoint_dir must be shared by every rank")
+        if not exists:
             return 0
-        epoch = persistence.load_checkpoint(path, self.params,
-                                            self.opt_states)
+        params, opt_states = self._full_state()
+        epoch = persistence.load_checkpoint(path, params, opt_states)
+        if self.pctx is not None:
+            for tree, full in ((self.params, params),
+                               *((self.opt_states[s], opt_states[s])
+                                 for s in self.opt_states)):
+                for k, t in self.pctx.shard_params(full).items():
+                    for dst, src in zip(streams._leaves(tree[k]),
+                                        streams._leaves(t)):
+                        dst.copy_(src)
         self.gen.manual_seed(persistence.resume_seed(self.cfg.seed, epoch))
         self._log(f"resumed from {path} at epoch {epoch}")
         return epoch
@@ -397,8 +464,11 @@ class MultiKETrainer:
         folder = out_folder or persistence.generate_out_folder(
             self.cfg.output, self.cfg.training_data, "",
             self.__class__.__name__)
+        # gathered on every rank before the rank-0 gate (a collective on tp)
         embeds = {w: self.current_embeds(w)
                   for w in ("final", "nv", "rv", "av", "rel", "attr")}
+        if distributed.rank() != 0:
+            return folder
         persistence.save_embeddings(folder, self.kgs, embeds["final"],
                                     embeds["nv"], embeds["rv"], embeds["av"],
                                     embeds["rel"], embeds["attr"])

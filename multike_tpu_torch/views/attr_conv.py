@@ -30,9 +30,10 @@ SAME_PAD = (1, 2, 0, 1)  # F.pad order: (left, right, top, bottom)
 
 
 def conv_stages(conv_params, attr_hs, attr_as, attr_vs, layer_num: int = 2,
-                mask=None):
+                mask=None, batch_sum=None):
     """Every intermediate activation of the scorer, NHWC, keyed as in the
-    JAX package; :func:`conv_score` keeps only ``"score"``."""
+    JAX package; :func:`conv_score` keeps only ``"score"``. ``batch_sum``:
+    see :func:`conv_score`."""
     B = attr_hs.shape[0]
     stages = {}
     x = torch.stack([attr_as, attr_vs], dim=1)[..., None]   # (B, 2, dim, 1)
@@ -58,15 +59,19 @@ def conv_stages(conv_params, attr_hs, attr_as, attr_vs, layer_num: int = 2,
     stages["dense_tanh"] = dense
     if mask is not None:
         dense = dense * mask[:, None]
-    dense = l2_normalize(dense, axis=None)                   # global norm
+    dense = l2_normalize(dense, axis=None, batch_sum=batch_sum)  # global norm
     stages["dense_gnorm"] = dense
     stages["score"] = -torch.sum(torch.square(attr_hs - dense), dim=1)
     return stages
 
 
 def conv_score(conv_params, attr_hs, attr_as, attr_vs, layer_num: int = 2,
-               mask=None):
+               mask=None, batch_sum=None):
     """(B,) scores. ``mask`` (B,) zeroes padded rows before the whole-tensor
-    normalization of step 5, so they do not change the real rows' values."""
+    normalization of step 5, so they do not change the real rows' values.
+    ``batch_sum``: with the batch split over ranks, the differentiable sum
+    over them that makes step 5's norm the whole batch's
+    (``params.l2_normalize``)."""
     return conv_stages(conv_params, attr_hs, attr_as, attr_vs,
-                       layer_num=layer_num, mask=mask)["score"]
+                       layer_num=layer_num, mask=mask,
+                       batch_sum=batch_sum)["score"]

@@ -149,3 +149,29 @@ def test_rank_count_signed_zero_max(dev, csls):
     assert bv.tolist() == [0.0, 0.0]
     c2, bi2, _ = rk.rank_count_plain(e1, gold, gidx, e2, r2)
     assert torch.equal(c, c2) and torch.equal(bi, bi2)
+
+
+@pytest.mark.parametrize("csls", [False, True])
+def test_rank_count_gold_outside_block(dev, csls):
+    """The ring's call: a block of columns whose rows' gold columns lie in
+    other blocks, as gold indices below 0 and from n2 on (``gold_idx -
+    col0``). No column is excluded then, so every column that beats the
+    gold counts; kernel and plain version agree exactly (integer scores)."""
+    n1, n2, d = 300, 700, 75
+    rng = np.random.RandomState(7 + int(csls))
+    e1 = rng.randint(-3, 4, (n1, d)).astype(np.float32)
+    e2 = rng.randint(-3, 4, (n2, d)).astype(np.float32)
+    gidx = np.where(np.arange(n1) % 2 == 0, -rng.randint(1, 5000, n1),
+                    n2 + rng.randint(0, 5000, n1)).astype(np.int32)
+    s = e1.astype(np.int64) @ e2.T.astype(np.int64)
+    r2 = rng.randint(-8, 9, n2).astype(np.float32) if csls else None
+    if csls:
+        s = 2 * s - r2.astype(np.int64)[None, :]
+    gold = np.median(s, axis=1).astype(np.float32)
+    t = [torch.as_tensor(x, device=dev) for x in (e1, gold, gidx, e2)]
+    rt = None if r2 is None else torch.as_tensor(r2, device=dev)
+    c, bi, bv = _rank_twice(*t, rt)
+    c2, bi2, bv2 = rk.rank_count_plain(*t, rt)
+    assert torch.equal(c, c2) and torch.equal(bi, bi2)
+    assert torch.equal(bv, bv2)
+    assert c.cpu().tolist() == (s > gold[:, None]).sum(1).tolist()

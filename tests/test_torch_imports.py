@@ -39,6 +39,13 @@ SSL_MODULES = {
         "train.ssl", "train.optimizers", "utils.misc", "utils.profiling")}
 
 
+# every module the multi-GPU slice added
+MESH_MODULES = {
+    "multike_tpu_torch." + m for m in (
+        "parallel.context", "parallel.distributed", "parallel.mesh",
+        "parallel.spmd", "parallel.tp_lookup", "eval.ring")}
+
+
 def test_import_loads_no_jax():
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
@@ -49,6 +56,7 @@ def test_import_loads_no_jax():
     assert len(names) >= 40          # every submodule was imported
     assert ITC_MODULES <= set(names), ITC_MODULES - set(names)
     assert SSL_MODULES <= set(names), SSL_MODULES - set(names)
+    assert MESH_MODULES <= set(names), MESH_MODULES - set(names)
     assert bad == [], bad
 
 

@@ -121,7 +121,9 @@ def test_entry_points_need_cuda_or_explicit_cpu(folder):
 
 
 def test_mesh_config_raises(folder):
+    """A mesh needs a process group of mesh_dp * mesh_tp ranks: without
+    one the trainer raises, and does not train on one rank instead."""
     kgs = read_kgs_from_folder(folder, "631/", "swapping", False)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="needs a process group of 2"):
         MultiKETrainer(Config(mesh_dp=2, **KW), _Data(kgs), verbose=False,
                        device="cpu")
