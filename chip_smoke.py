@@ -14,12 +14,18 @@ Phases, each of which must pass or the script exits non-zero:
      report each one's registers and spills (a spill fails the run);
   2. K1, the fused row-sparse Adagrad apply, against its plain PyTorch
      version at the per-step shape of bench.py (200K x 75 table, the ids of
-     one batch-80000 chunk_shared step) and at that of its reference-parity
-     row (the ids of one batch-5000 per_slot step);
+     one batch-80000 chunk_shared step), at the same ids in a 200K x 384
+     table, and at the step shape of bench.py's reference-parity row (the
+     ids of one batch-5000 per_slot step);
   3. K2, the fused rank count, against its plain version at 35K x 70K,
      d=75, and at the main path's own 6K x 6K and 2K x 8K, then in CSLS
      form; at each shape it is timed beside the plain version and
-     ``torch.matmul`` alone, with its bound and launch geometry;
+     ``torch.matmul`` alone, with its bound and launch geometry. Then a
+     sweep of the kernel's two plans: at each of those shapes and d = 75,
+     128, 256 and 352 both, in turns (resident, streamed, streamed,
+     resident) and bitwise equal to each other; at 35K x 70K and d = 353,
+     512 and 1024 the streamed plan alone; each the same against the plain
+     version (compared, not timed);
   4. the main path: ``MultiKETrainer`` trains the relation view on the
      port's synthetic 20K-entity KG pair and ``views.valid_metrics`` ranks
      it; the rv valid MRR must rise and both kernels must have launched;
@@ -69,9 +75,15 @@ Phases, each of which must pass or the script exits non-zero:
      epoch within rtol 2e-3, test MRRs within 0.02). K1 and K2 must launch
      on every rank. The ranks share one card, so their times say nothing
      about scaling.
+  9. the ITC driver through ``cli.main`` at ``--set dim=384`` on a
+     5K-entity pair, 3 epochs, row-sparse on, one evaluation: K1 and K2
+     must launch, every stream's loss be finite, the test MRRs reach the
+     floors of WIDE_FLOORS and the embeddings be saved; the saved final
+     embeddings of the test pairs, ranked once more by K2 and by its
+     plain version, must agree up to ties, and give the driver's test MRR.
 
 It then prints one ``{"kernels": [...]}`` line (``launches`` counts the SSL
-run; ``launches_by_path`` adds the ITC run's, phase 4's and the mesh
+run; ``launches_by_path`` adds the ITC runs', phase 4's and the mesh
 runs' over all ranks, ``mesh_launches_by_rank`` each mesh run's per rank),
 the card's name and power limit as nvidia-smi reports them, and last
 ``{"ok": true, "device": ...}``. Without a CUDA device, or without the
@@ -263,6 +275,9 @@ def phase_apply(dev, peaks, n_ent=100_000, rel_triples=600_000, seed=0):
         ids, _ = epoch._prep(*xs)
         cases[label] = _k1_case(dev, peaks, ids["rv_ent"], 2 * n_ent,
                                 cfg.dim, seed, label)
+        if label == "chunk_shared":      # the same ids, at phase 9's width
+            cases["wide"] = _k1_case(dev, peaks, ids["rv_ent"], 2 * n_ent,
+                                     WIDE_DIM, seed, f"{label} d={WIDE_DIM}")
     main = cases["chunk_shared"]
     return dict(name="fused_row_adagrad", route="cuda",
                 source="multike_tpu_torch/csrc/apply_kernel.cu",
@@ -270,7 +285,8 @@ def phase_apply(dev, peaks, n_ent=100_000, rel_triples=600_000, seed=0):
                 max_abs_err=max(c["max_abs_err"] for c in cases.values()),
                 ms=main["ms"], plain_ms=main["plain_ms"],
                 bound_ms=main["bound_ms"], bound_by="bytes", library_ms=None,
-                shape=main["shape"], per_slot_step=cases["per_slot"])
+                shape=main["shape"], per_slot_step=cases["per_slot"],
+                wide_step=cases["wide"])
 
 
 def _k1_case(dev, peaks, ids, E, d, seed, label):
@@ -371,12 +387,12 @@ def _rank_compare(e1, e2, gold, r2, got, want, gidx=None):
 RANK_SHAPES = ((35_000, 70_000, 5), (6_000, 6_000, 20), (2_000, 8_000, 20))
 
 
-def _rank_twice(rk, *args):
+def _rank_twice(rk, *args, **kw):
     """Two kernel calls, which must return bitwise-equal outputs."""
     import torch
 
-    first = rk.rank_count(*args)
-    second = rk.rank_count(*args)
+    first = rk.rank_count(*args, **kw)
+    second = rk.rank_count(*args, **kw)
     torch.cuda.synchronize()
     check(all(torch.equal(a.view(torch.int32), b.view(torch.int32))
               for a, b in zip(first, second)),
@@ -384,35 +400,39 @@ def _rank_twice(rk, *args):
     return first
 
 
-def _rank_shape(dev, peaks, n1, n2, d, reps, seed, clock_calls=0):
+def _rank_shape(dev, peaks, n1, n2, d, reps, seed, clock_calls=0,
+                time_plain=True, path=None, outputs=False):
     """K2 at one shape: tie-only mismatches against the plain version,
     bitwise-equal repeats, and the times of the kernel, the plain version
-    and ``torch.matmul`` alone beside the bound. With ``clock_calls``, the
-    SM clock under a sustained run of the kernel, and the share of the
-    FFMA issue slots at that clock that the kernel's products fill."""
+    (unless not ``time_plain``) and ``torch.matmul`` alone beside the
+    bound. ``path`` forces the kernel's plan; ``outputs`` keeps the
+    kernel's outputs under "outputs". With ``clock_calls``, the SM clock
+    under a sustained run of the kernel, and the share of the FFMA issue
+    slots at that clock that the kernel's products fill."""
     import torch
 
     from multike_tpu_torch.kernels import rank_kernel as rk
 
+    kw = {} if path is None else {"_path": path}
     e1, e2 = _rank_inputs(dev, n1, n2, d, seed)
     gold = (e1 * e2[:n1]).sum(1)
     gidx = torch.arange(n1, dtype=torch.int32, device=dev)
-    got = _rank_twice(rk, e1, gold, gidx, e2)
+    got = _rank_twice(rk, e1, gold, gidx, e2, **kw)
     want = rk.rank_count_plain(e1, gold, gidx, e2)
     torch.cuda.synchronize()
     c_mis, i_mis, ties = _rank_compare(e1, e2, gold, None, got, want)
     err = float((got[2] - want[2]).abs().max())
 
-    ms = time_ms(lambda: rk.rank_count(e1, gold, gidx, e2), reps)
+    ms = time_ms(lambda: rk.rank_count(e1, gold, gidx, e2, **kw), reps)
     plain_ms = time_ms(lambda: rk.rank_count_plain(e1, gold, gidx, e2),
-                       max(3, reps // 4))
+                       max(3, reps // 4)) if time_plain else None
     library_ms = time_ms(lambda: torch.matmul(e1, e2.T), max(3, reps // 2))
     flops = 2.0 * n1 * n2 * d
     nbytes = (n1 + n2) * d * 4 + n1 * 8 + n1 * 12
     mem_rate, fp32_rate = peaks
     bound_ms = max(flops / fp32_rate, nbytes / mem_rate) * 1e3
     # (an earlier version of the package, under --k2-of, may have no plan)
-    geo = rk.plan(n1, n2, d, device=dev) if hasattr(rk, "plan") else {}
+    geo = rk.plan(n1, n2, d, device=dev, **kw) if hasattr(rk, "plan") else {}
     if clock_calls:
         clk = clocks_under_load(lambda: rk.rank_count(e1, gold, gidx, e2),
                                 clock_calls)
@@ -422,13 +442,18 @@ def _rank_shape(dev, peaks, n1, n2, d, reps, seed, clock_calls=0):
     log(f"[K2] {n1}x{n2} d={d}: kernel {ms:.4f} ms = "
         f"{flops / ms / 1e9:.2f} TFLOP/s = {100 * bound_ms / ms:.1f}% of the "
         f"bound {bound_ms:.4f} ms ({flops / 1e9:.2f} GFLOP at "
-        f"{fp32_rate / 1e12:.0f} TFLOP/s fp32); plain {plain_ms:.4f} ms; "
-        f"torch.matmul alone {library_ms:.4f} ms")
+        f"{fp32_rate / 1e12:.0f} TFLOP/s fp32); "
+        + (f"plain {plain_ms:.4f} ms; " if time_plain else "")
+        + f"torch.matmul alone {library_ms:.4f} ms")
     if "tiles" in geo:
         log(f"[K2]   {geo['tiles']} tiles of 128x128 on {geo['ctas']} CTAs "
-            f"({geo['resident']} resident slots, {geo['waves']} wave, "
-            f"{geo['tiles_per_cta_min']}-{geo['tiles_per_cta_max']} tiles "
-            f"per CTA, {geo['smem']} B shared memory each)")
+            f"({geo['resident']} resident slots"
+            + (f", {geo['ctas_per_sm']} per SM" if "ctas_per_sm" in geo
+               else "")
+            + f", {geo['waves']} wave, {geo['tiles_per_cta_min']}-"
+            f"{geo['tiles_per_cta_max']} tiles per CTA, {geo['smem']} B "
+            "shared memory each)"
+            + (f"; {geo['path']} plan" if "path" in geo else ""))
     log(f"[K2]   count mismatches {c_mis}, "
         f"argmax mismatches {i_mis}, all on {ties} rows within 1e-6 of a "
         f"tie; best_val max_abs_err {err:.3e}; mean rank "
@@ -439,11 +464,14 @@ def _rank_shape(dev, peaks, n1, n2, d, reps, seed, clock_calls=0):
             f"{clk['power_w']:.1f} W ({clk['samples']} samples), so the "
             f"products fill {100 * clk['ffma_slot_share']:.1f}% of the FFMA "
             "issue slots at that clock")
-    return dict(n1=n1, n2=n2, d=d, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=bound_ms,
-                bound_share=bound_ms / ms, tflops=flops / ms / 1e9,
-                max_abs_err=err, count_mismatches=c_mis,
-                argmax_mismatches=i_mis, tie_rows=ties, **geo)
+    rec = dict(n1=n1, n2=n2, d=d, ms=ms, plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=bound_ms,
+               bound_share=bound_ms / ms, tflops=flops / ms / 1e9,
+               max_abs_err=err, count_mismatches=c_mis,
+               argmax_mismatches=i_mis, tie_rows=ties, **geo)
+    if outputs:
+        rec["outputs"] = got
+    return rec
 
 
 def phase_rank(dev, peaks, d=75, csls_n=(5_000, 10_000), csls_k=10):
@@ -482,6 +510,44 @@ def phase_rank(dev, peaks, d=75, csls_n=(5_000, 10_000), csls_k=10):
                                            for x in shapes),
                 tie_rows=ct + sum(x["tie_rows"] for x in shapes),
                 shape=dict(n1=big["n1"], n2=big["n2"], d=d), shapes=shapes)
+
+
+# K2's plan sweep: both plans at phase 3's shapes where both fit (the
+# crossover in rank_kernel.cu is set from these, and d = 75 shows whether
+# the resident plan earns its place), then the streamed plan past the 352
+# that the resident plan holds.
+BOTH_PLANS = ("resident", "streamed")
+WIDTHS = tuple((shape, d, BOTH_PLANS) for shape in RANK_SHAPES
+               for d in (75, 128, 256, 352)) + tuple(
+    (RANK_SHAPES[0], d, ("streamed",)) for d in (353, 512, 1024))
+
+
+def phase_widths(dev, peaks, widths=WIDTHS):
+    """K2 at each (shape, width, plans) of ``widths`` as ``_rank_shape``
+    runs it, with the plain version compared and not timed; two plans run
+    in turns (the first, the second, the second, the first) and must give
+    bitwise-equal outputs. Returns, for each, the runs and the plan the
+    kernel picks."""
+    import torch
+
+    from multike_tpu_torch.kernels import rank_kernel as rk
+
+    out = []
+    for i, ((n1, n2, reps), d, paths) in enumerate(widths):
+        turns = paths + paths[::-1] if len(paths) > 1 else paths
+        runs = [_rank_shape(dev, peaks, n1, n2, d, reps, 100 + i,
+                            time_plain=False, path=path, outputs=True)
+                for path in turns]
+        outs = [r.pop("outputs") for r in runs]
+        check(all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                  for o in outs[1:] for a, b in zip(outs[0], o)),
+              f"K2's plans differ at {n1}x{n2} d={d}")
+        out.append(dict(n1=n1, n2=n2, d=d,
+                        pick=rk.plan(n1, n2, d, device=dev)["path"],
+                        runs=runs))
+        del outs
+        torch.cuda.empty_cache()
+    return out
 
 
 class _Data:
@@ -1799,6 +1865,94 @@ def phase_mesh(dev, card, n=20_000, dim=75, batch=5000, epochs=10,
     return total, by_rank, numbers
 
 
+# Phase 9's width, and floors of its test MRRs. The JAX package and the
+# port on the CPU (tests/wide_itc_reference.py) give nv 0.897, rv 0.989
+# and final 0.181 at this width; av is near chance (about 0.009, against
+# 0.005 for random ranks) there and at d = 75 too, since three epochs
+# barely train the attribute view, so it has no floor.
+WIDE_DIM = 384
+WIDE_FLOORS = {"nv": 0.85, "rv": 0.9, "final": 0.12}
+
+
+def phase_wide_itc(dev, n=5_000, dim=WIDE_DIM, batch=5000, epochs=3):
+    """Phase 9 (see the module's docstring). Returns the kernels' launches
+    and the numbers."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from multike_tpu_torch import cli
+    from multike_tpu_torch.data.readers import read_links
+    from multike_tpu_torch.kernels import rank_kernel as rk
+    from multike_tpu_torch.params import l2_normalize
+
+    cfg = driver_config(n, "itc_wide", 75, batch, epochs)
+    folder = os.path.join(REPO, "output", "chip_smoke", "itc_wide")
+    shutil.rmtree(folder, ignore_errors=True)
+    os.makedirs(folder)
+    args = os.path.join(folder, "args.json")
+    with open(args, "w") as f:
+        json.dump(dataclasses.asdict(cfg), f)
+    metrics = os.path.join(folder, "metrics.jsonl")
+    _zero_launches()
+    t0 = time.time()
+    results = cli.main(["-m", "ITC", "-d", cfg.training_data, "--args", args,
+                        "--set", f"dim={dim}",
+                        "--set", f"metrics_log_path={metrics}"])
+    run_s = time.time() - t0
+    launches = _launches()
+    recs = _stream_losses(metrics)
+    log(f"[wide] ITC through cli.main at --set dim={dim}, {n} entities per "
+        f"KG, {epochs} epochs in {run_s:.1f} s (DataModel included); test "
+        f"MRR {results}; launches {launches}")
+    check(all(v > 0 for v in launches.values()),
+          f"a kernel did not launch at d={dim}: {launches}")
+    check({s for s, _ in recs} >= set(ITC_STREAMS)
+          and all(np.isfinite(v[0]) for v in recs.values()),
+          "a stream did not run, or its loss is not finite")
+    check(set(results) == {"nv", "rv", "av", "final"}
+          and all(np.isfinite(v) for v in results.values())
+          and all(results[k] >= v for k, v in WIDE_FLOORS.items()),
+          f"test MRRs {results} below the floors {WIDE_FLOORS}")
+
+    # the saved final embeddings of the test pairs, ranked once more
+    runs = sorted(glob.glob(os.path.join(cfg.output, "MultiKE_ITC", "*", "*")))
+    check(runs, "the embeddings were not saved")
+    ent = np.load(os.path.join(runs[-1], "ent_embeds.npy"))
+    check(ent.shape[1] == dim, f"saved embeddings of width {ent.shape[1]}")
+    ids = []
+    for kg in (1, 2):
+        with open(os.path.join(runs[-1], f"kg{kg}_ent_ids")) as f:
+            ids.append(dict(ln.rstrip("\n").split("\t") for ln in f))
+    links = read_links(cfg.training_data + cfg.dataset_division + "test_links")
+    d1, d2 = (l2_normalize(torch.as_tensor(
+        ent[[int(ids[s][p[s]]) for p in links]], device=dev), axis=1)
+        for s in (0, 1))
+    n1 = d1.shape[0]
+    gold = torch.sum(d1 * d2, dim=1)
+    gidx = torch.arange(n1, dtype=torch.int32, device=dev)
+    geo = rk.plan(n1, n1, dim, device=dev)
+    got = rk.rank_count(d1, gold, gidx, d2)
+    want = rk.rank_count_plain(d1, gold, gidx, d2)
+    c_mis, i_mis, ties = _rank_compare(d1, d2, gold, None, got, want)
+    mrr = float((1.0 / (got[0].double() + 1)).mean())
+    log(f"[wide] saved final test embeddings, {n1}x{n1} d={dim}, "
+        f"{geo['path']} plan ({geo['ctas_per_sm']} CTAs per SM): K2 against "
+        f"its plain version: count mismatches {c_mis}, argmax mismatches "
+        f"{i_mis}, all on {ties} rows within 1e-6 of a tie; MRR {mrr:.6f} "
+        f"against the driver's {results['final']:.6f}")
+    check(geo["path"] == "streamed", f"d={dim} ran the {geo['path']} plan")
+    check(abs(mrr - results["final"]) <= 5e-3,
+          "the saved embeddings do not give the driver's final test MRR")
+    return launches, dict(entities_per_kg=n, dim=dim, epochs=epochs,
+                          run_s=run_s, test_mrr=results, launches=launches,
+                          rerank=dict(rows=n1, plan=geo["path"],
+                                      count_mismatches=c_mis,
+                                      argmax_mismatches=i_mis, tie_rows=ties,
+                                      mrr=mrr))
+
+
 def main() -> int:
     try:
         import torch
@@ -1841,24 +1995,28 @@ def main() -> int:
         return 0
     k1 = phase_apply(dev, peaks)
     k2 = phase_rank(dev, peaks)
+    k2["widths"] = phase_widths(dev, peaks)
     main_launches = phase_main_path(dev)
     rate = phase_throughput(dev, card)
     parity = phase_parity(dev, card)
     itc_launches, _, data = phase_itc(dev)
     ssl_launches, _ = phase_ssl(dev, data)
     mesh_launches, mesh_by_rank, _ = phase_mesh(dev, card)
+    wide_launches, wide = phase_wide_itc(dev)
 
     for k in (k1, k2):
         k["launches"] = ssl_launches[k["name"]]
         k["launches_by_path"] = {"ssl": ssl_launches[k["name"]],
                                  "itc": itc_launches[k["name"]],
                                  "rel_view": main_launches[k["name"]],
-                                 "mesh": mesh_launches[k["name"]]}
+                                 "mesh": mesh_launches[k["name"]],
+                                 f"itc_d{WIDE_DIM}": wide_launches[k["name"]]}
         k["mesh_launches_by_rank"] = {
             run: [c[k["name"]] for c in counts]
             for run, counts in mesh_by_rank.items()}
     log(f"[rate] {json.dumps(rate)}")
     log(f"[parity] {json.dumps(parity)}")
+    log(f"[wide] {json.dumps(wide)}")
     log(f"[done] all phases passed in {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": [k1, k2]}), flush=True)
     print(card, flush=True)

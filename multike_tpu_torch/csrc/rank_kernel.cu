@@ -31,11 +31,27 @@
 // tiles per CTA; the grid is one CTA per resident slot (occupancy x SMs),
 // so every CTA gets within one tile of the same work at any shape and all
 // of them run in a single wave. A CTA walks its range in segments, one per
-// row block it touches. For each it stages the block's rows of e1t once,
-// with their gold scores and gold columns, and streams the segment's
-// column tiles of e2t, KC rows of k at a time, through a STAGES-deep ring
-// of cp.async groups: the next chunks land while the current one is
-// computed. Each of the 256 threads keeps an 8 x 8 register tile, fed for
+// row block it touches. For each it stages the block's gold scores and
+// gold columns and streams the segment's column tiles of e2t, KC rows of k
+// at a time, through a STAGES-deep ring of cp.async groups: the next
+// chunks land while the current one is computed.
+//
+// Two plans share that loop and differ in where the row block of e1t
+// lives. The resident plan stages it once per segment in shared memory,
+// 128 x dp floats beside the ring, so its shared memory grows with d: two
+// CTAs fit on an SM only while dp <= 124, and none past dp = 352. The
+// streamed plan instead carries a KC-row chunk of the block's e1t in each
+// ring stage beside the chunk of e2t, about 76 KB a CTA at any d (two CTAs
+// per SM), at the price of reading the block's e1t again from L2 for every
+// column tile: 32 FLOP per byte of chunk. Half the threads copy a chunk of
+// e1t and half one of e2t, each with one source and one stride: with both
+// copies in every thread the streamed kernel needed more than the 128
+// registers that 2 CTAs per SM allow, and spilled. make_plan takes the
+// resident plan where it fits and dp is below kStreamFromDp, the streamed
+// one otherwise. Both sum k in increasing order with fmaf, so their scores
+// and outputs are bitwise equal.
+//
+// Each of the 256 threads keeps an 8 x 8 register tile, fed for
 // each k by four LDS.128 without bank conflicts (rows ty*4 and 64 + ty*4,
 // columns tx*4 and 64 + tx*4): 64 FFMA per 4 shared loads. When a tile is
 // complete its scores fold into the thread's per-row count and best, which
@@ -71,13 +87,29 @@ constexpr int TX = BN / TN, TY = BM / TM;    // 16 x 16 threads
 constexpr int THREADS = TX * TY;             // 256
 constexpr int KC = 16;                       // rows of k in a ring stage
 constexpr int STAGES = 3;
-constexpr int STAGE_FLOATS = KC * BN + BN;   // a chunk of e2t, then r2
 constexpr int NO_COL = 0x7fffffff;           // "no column seen yet"
 constexpr size_t kMaxSmem = 227 * 1024;
+// The resident plan serves dp below this, the streamed plan the rest. From
+// dp = 128 on, the resident plan fits one CTA per SM, and the streamed plan
+// (two) was 7-8% faster at d = 128, 256 and 352 at 35,000 x 70,000 on an
+// H100 SXM (chip_smoke.py's width sweep; PERF.md).
+constexpr int kStreamFromDp = 128;
 
-size_t smem_bytes(int dp) {
-  return sizeof(float) * ((size_t)dp * BM + 2 * BM +
-                          (size_t)STAGES * STAGE_FLOATS + 3 * TM * THREADS);
+// A ring stage, in floats: [KC][BM] of e1t (streamed plan only), then
+// [KC][BN] of e2t, then [BN] of r2.
+template <bool STREAM>
+struct Stage {
+  static constexpr int A = 0;
+  static constexpr int B = STREAM ? KC * BM : 0;
+  static constexpr int R = B + KC * BN;
+  static constexpr int FLOATS = R + BN;
+};
+
+size_t smem_bytes(int dp, bool stream) {
+  const size_t ring = STAGES * (size_t)(stream ? Stage<true>::FLOATS
+                                               : Stage<false>::FLOATS);
+  return sizeof(float) * ((stream ? 0 : (size_t)dp * BM) + 2 * BM + ring +
+                          3 * TM * THREADS);
 }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -186,7 +218,7 @@ __device__ __forceinline__ void fold_tile(float (&acc)[TM][TN],
   }
 }
 
-template <bool CSLS>
+template <bool CSLS, bool STREAM>
 __global__ void __launch_bounds__(THREADS, 2)
 rank_count_kernel(const float* __restrict__ e1t,
                   const float* __restrict__ e2t,
@@ -196,14 +228,15 @@ rank_count_kernel(const float* __restrict__ e1t,
                   int ld1, int ld2, int col_tiles, long long tiles,
                   int32_t* __restrict__ count,
                   unsigned long long* __restrict__ best) {
+  using S = Stage<STREAM>;
   extern __shared__ __align__(16) float smem[];
-  float* As = smem;                                  // [dp][BM]
-  float* gs = As + (size_t)dp * BM;                  // [BM] gold scores
+  float* As = smem;                        // [dp][BM], resident plan only
+  float* gs = As + (STREAM ? 0 : (size_t)dp * BM);   // [BM] gold scores
   int* gis = reinterpret_cast<int*>(gs + BM);        // [BM] gold columns
-  float* ring = reinterpret_cast<float*>(gis + BM);  // [STAGES][STAGE_FLOATS]
+  float* ring = reinterpret_cast<float*>(gis + BM);  // [STAGES][S::FLOATS]
   // Each thread's per-row count and best between tiles, [TM][THREADS]: in
   // shared memory they leave the registers to the 8 x 8 tile and its feed.
-  int* st_cnt = reinterpret_cast<int*>(ring + STAGES * STAGE_FLOATS);
+  int* st_cnt = reinterpret_cast<int*>(ring + STAGES * S::FLOATS);
   float* st_bv = reinterpret_cast<float*>(st_cnt + TM * THREADS);
   int* st_bi = reinterpret_cast<int*>(st_bv + TM * THREADS);
   const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
@@ -223,27 +256,43 @@ rank_count_kernel(const float* __restrict__ e1t,
       gs[r] = row < n1 ? gold[row] : INFINITY;
       gis[r] = row < n1 ? gold_idx[row] : -1;
     }
-    for (int c = tid; c < dp * (BM / 4); c += THREADS) {
-      const int k = c / (BM / 4), q = c % (BM / 4) * 4;
-      cp_async16(As + k * BM + q, e1t + (size_t)k * ld1 + row0 + q);
+    if (!STREAM) {
+      for (int c = tid; c < dp * (BM / 4); c += THREADS) {
+        const int k = c / (BM / 4), q = c % (BM / 4) * 4;
+        cp_async16(As + k * BM + q, e1t + (size_t)k * ld1 + row0 + q);
+      }
     }
     // Chunks run through the ring in order: chunk n holds rows [k0, k0 +
-    // kc) of k of one column tile and goes to stage n % STAGES; a tile's
-    // last chunk also brings the tile's r2 slice. These count the next
-    // chunk to issue: chunk ic of tile t0 + it, into stage is.
+    // kc) of k of one column tile (and, streamed, of the row block) and
+    // goes to stage n % STAGES; a tile's last chunk also brings the tile's
+    // r2 slice. These count the next chunk to issue: chunk ic of tile t0 +
+    // it, into stage is.
     const int nchunks = nt * cpt;
     int issued = 0, ic = 0, it = 0, is = 0;
     auto issue_next = [&]() {
       if (issued < nchunks) {
         const int k0 = ic * KC, kc = min(KC, dp - k0);
-        float* dst = ring + is * STAGE_FLOATS;
+        float* dst = ring + is * S::FLOATS;
         const float* src = e2t + (size_t)k0 * ld2 + (size_t)(t0 + it) * BN;
-        for (int c = tid; c < kc * (BN / 4); c += THREADS) {
-          const int k = c / (BN / 4), q = c % (BN / 4) * 4;
-          cp_async16(dst + k * BN + q, src + (size_t)k * ld2 + q);
+        if (STREAM) {
+          // threads [0, H) copy the chunk of e1t, [H, THREADS) that of e2t
+          static_assert(BM == BN, "one copy layout for e1t and e2t");
+          constexpr int H = THREADS / 2, R = H / (BN / 4);
+          const bool a = tid < H;
+          const int h = a ? tid : tid - H, q = h % (BN / 4) * 4;
+          const float* s = a ? e1t + (size_t)k0 * ld1 + row0 : src;
+          const int ld = a ? ld1 : ld2;
+          float* t = dst + (a ? S::A : S::B);
+          for (int k = h / (BN / 4); k < kc; k += R)
+            cp_async16(t + k * BN + q, s + (size_t)k * ld + q);
+        } else {
+          for (int c = tid; c < kc * (BN / 4); c += THREADS) {
+            const int k = c / (BN / 4), q = c % (BN / 4) * 4;
+            cp_async16(dst + S::B + k * BN + q, src + (size_t)k * ld2 + q);
+          }
         }
         if (CSLS && k0 + kc == dp && tid < BN / 4)
-          cp_async16(dst + KC * BN + tid * 4,
+          cp_async16(dst + S::R + tid * 4,
                      r2 + (size_t)(t0 + it) * BN + tid * 4);
         ++issued;
         if (++ic == cpt) {
@@ -254,8 +303,9 @@ rank_count_kernel(const float* __restrict__ e1t,
       }
       cp_async_commit();
     };
+    // (resident: the row block of e1t joins group 0)
 #pragma unroll
-    for (int p = 0; p < STAGES - 1; ++p) issue_next();  // e1t joins group 0
+    for (int p = 0; p < STAGES - 1; ++p) issue_next();
 
     float acc[TM][TN];
 #pragma unroll
@@ -273,8 +323,9 @@ rank_count_kernel(const float* __restrict__ e1t,
       __syncthreads();              // ... for every thread; stage n-1 is free
       issue_next();
 
-      const float* A = As + (size_t)k0 * BM;
-      const float* B = ring + stage * STAGE_FLOATS;
+      const float* St = ring + stage * S::FLOATS;
+      const float* A = STREAM ? St + S::A : As + (size_t)k0 * BM;
+      const float* B = St + S::B;
       if (++stage == STAGES) stage = 0;
       if (k0 + KC <= dp) {
         fma_steps<KC>(acc, A, B, tx, ty);
@@ -296,9 +347,9 @@ rank_count_kernel(const float* __restrict__ e1t,
       float r[TN];
       if (CSLS) {
         const float4 r0 =
-            *reinterpret_cast<const float4*>(B + KC * BN + tx * 4);
+            *reinterpret_cast<const float4*>(St + S::R + tx * 4);
         const float4 r1 =
-            *reinterpret_cast<const float4*>(B + KC * BN + BN / 2 + tx * 4);
+            *reinterpret_cast<const float4*>(St + S::R + BN / 2 + tx * 4);
         r[0] = r0.x; r[1] = r0.y; r[2] = r0.z; r[3] = r0.w;
         r[4] = r1.x; r[5] = r1.y; r[6] = r1.z; r[7] = r1.w;
       }
@@ -426,29 +477,47 @@ size_t round_up(size_t n, size_t m) { return (n + m - 1) / m * m; }
 
 struct Plan {
   int dp, ld1, ld2;  // d rounded up to 4; n1 and n2 up to the tile
+  bool stream;       // the streamed plan (else the resident one)
   int col_tiles;
   long long tiles;   // (row block, column tile) pairs
   int ctas;          // grid: min(tiles, resident)
+  int per_sm;        // CTAs that fit on an SM at once
   int resident;      // CTAs that fit on the card at once
   size_t smem;       // dynamic shared memory of a CTA
   // workspace layout in bytes: best keys (n1 uint64), then e1t, e2t, r2
   size_t e1t_at, e2t_at, r2_at, workspace;
 };
 
-// Sets the rank kernel's shared-memory attributes and plans the launch.
-cudaError_t make_plan(int n1, int n2, int d, bool csls, Plan* p) {
+enum { kPathAuto = 0, kPathResident = 1, kPathStreamed = 2 };
+
+const void* kernel_of(bool csls, bool stream) {
+  if (stream)
+    return csls ? (const void*)rank_count_kernel<true, true>
+                : (const void*)rank_count_kernel<false, true>;
+  return csls ? (const void*)rank_count_kernel<true, false>
+              : (const void*)rank_count_kernel<false, false>;
+}
+
+// Picks the plan (``path``: kPathAuto, or one forced), sets its kernel's
+// shared-memory attributes and plans the launch. Forcing the resident
+// plan where it does not fit is an error.
+cudaError_t make_plan(int n1, int n2, int d, bool csls, int path, Plan* p) {
   if (n1 < 0 || n2 < 0 || d <= 0) return cudaErrorInvalidValue;
+  if (path != kPathAuto && path != kPathResident && path != kPathStreamed)
+    return cudaErrorInvalidValue;
   p->dp = (int)round_up(d, 4);
   p->ld1 = (int)round_up(n1, BM);
   p->ld2 = (int)round_up(n2, BN);
-  p->smem = smem_bytes(p->dp);
-  if (p->smem > kMaxSmem) return cudaErrorInvalidValue;
+  const bool fits = smem_bytes(p->dp, false) <= kMaxSmem;
+  if (path == kPathResident && !fits) return cudaErrorInvalidValue;
+  p->stream = path == kPathStreamed ||
+              (path == kPathAuto && (!fits || p->dp >= kStreamFromDp));
+  p->smem = smem_bytes(p->dp, p->stream);
   p->e1t_at = round_up(sizeof(unsigned long long) * n1, 256);
   p->e2t_at = p->e1t_at + sizeof(float) * p->dp * p->ld1;
   p->r2_at = p->e2t_at + sizeof(float) * p->dp * p->ld2;
   p->workspace = p->r2_at + sizeof(float) * p->ld2;
-  const void* fn = csls ? (const void*)rank_count_kernel<true>
-                        : (const void*)rank_count_kernel<false>;
+  const void* fn = kernel_of(csls, p->stream);
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p->smem);
   if (err != cudaSuccess) return err;
@@ -465,52 +534,59 @@ cudaError_t make_plan(int n1, int n2, int d, bool csls, Plan* p) {
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   p->col_tiles = p->ld2 / BN;
   p->tiles = (long long)(p->ld1 / BM) * p->col_tiles;
+  p->per_sm = per_sm;
   p->resident = per_sm * sms;
   p->ctas = (int)(p->tiles < p->resident ? p->tiles : p->resident);
   return cudaSuccess;
 }
 
-template <bool CSLS>
+template <bool CSLS, bool STREAM>
 void launch_rank(const Plan& p, cudaStream_t s, const float* e1t,
                  const float* e2t, const float* gold, const int32_t* gold_idx,
                  const float* r2p, int n1, int n2, int32_t* count,
                  unsigned long long* best) {
-  rank_count_kernel<CSLS><<<p.ctas, THREADS, p.smem, s>>>(
+  rank_count_kernel<CSLS, STREAM><<<p.ctas, THREADS, p.smem, s>>>(
       e1t, e2t, gold, gold_idx, r2p, n1, n2, p.dp, p.ld1, p.ld2, p.col_tiles,
       p.tiles, count, best);
 }
 
 }  // namespace
 
-// The plan of rank_count on the current device: out[0] tiles, out[1] CTAs,
-// out[2] resident CTA slots, out[3] dynamic shared memory bytes per CTA,
-// out[4] workspace bytes. Returns a cudaError_t.
-extern "C" int rank_count_plan(int n1, int n2, int d, int csls,
+// The plan of rank_count on the current device, for ``path`` as
+// rank_count takes it: out[0] tiles, out[1] CTAs, out[2] resident CTA
+// slots, out[3] dynamic shared memory bytes per CTA, out[4] workspace
+// bytes, out[5] the plan (kPathResident or kPathStreamed), out[6] CTAs per
+// SM. Returns a cudaError_t.
+extern "C" int rank_count_plan(int n1, int n2, int d, int csls, int path,
                                long long* out) {
   Plan p;
-  const cudaError_t err = make_plan(n1, n2, d, csls != 0, &p);
+  const cudaError_t err = make_plan(n1, n2, d, csls != 0, path, &p);
   if (err != cudaSuccess) return (int)err;
   out[0] = p.tiles;
   out[1] = p.ctas;
   out[2] = p.resident;
   out[3] = (long long)p.smem;
   out[4] = (long long)p.workspace;
+  out[5] = p.stream ? kPathStreamed : kPathResident;
+  out[6] = p.per_sm;
   return 0;
 }
 
 // e1: (n1, d), e2: (n2, d), gold: (n1,) float32, row-major; gold_idx: (n1,)
-// int32; r2: (n2,) float32 or null; workspace: at least the bytes that
+// int32; r2: (n2,) float32 or null; path: 0 (the plan make_plan picks), 1
+// (resident) or 2 (streamed); workspace: at least the bytes that
 // rank_count_plan gives. Writes count, best_idx (int32) and best_val
 // (float32), each (n1,). Launches, on `stream` (a cudaStream_t), the input
 // preparation, the rank kernel and the unpacking of the best keys. Returns
 // cudaGetLastError() or the first error met.
 extern "C" int rank_count(const void* e1, const void* e2, const void* gold,
                           const void* gold_idx, const void* r2, int n1,
-                          int n2, int d, void* workspace, void* count,
-                          void* best_idx, void* best_val, void* stream) {
+                          int n2, int d, int path, void* workspace,
+                          void* count, void* best_idx, void* best_val,
+                          void* stream) {
   if (n1 <= 0 || n2 <= 0) return (int)cudaErrorInvalidValue;
   Plan p;
-  cudaError_t err = make_plan(n1, n2, d, r2 != nullptr, &p);
+  cudaError_t err = make_plan(n1, n2, d, r2 != nullptr, path, &p);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = (cudaStream_t)stream;
   char* ws = static_cast<char*>(workspace);
@@ -523,9 +599,13 @@ extern "C" int rank_count(const void* e1, const void* e2, const void* gold,
       (const float*)e1, (const float*)e2, (const float*)r2, n1, n2, d, p.dp,
       p.ld1, p.ld2, e1t, e2t, r2p, (int32_t*)count, best);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  (r2 != nullptr ? launch_rank<true> : launch_rank<false>)(
-      p, s, e1t, e2t, (const float*)gold, (const int32_t*)gold_idx, r2p, n1,
-      n2, (int32_t*)count, best);
+  auto* launch = r2 != nullptr
+                     ? (p.stream ? launch_rank<true, true>
+                                 : launch_rank<true, false>)
+                     : (p.stream ? launch_rank<false, true>
+                                 : launch_rank<false, false>);
+  launch(p, s, e1t, e2t, (const float*)gold, (const int32_t*)gold_idx, r2p,
+         n1, n2, (int32_t*)count, best);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   unpack_best<<<(n1 + 255) / 256, 256, 0, s>>>(best, n1, (int32_t*)best_idx,
                                                (float*)best_val);

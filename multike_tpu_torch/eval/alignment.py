@@ -51,9 +51,11 @@ def rank_and_align(embed1, embed2, normalize: bool = True, csls_k: int = 0,
     Tensor inputs stay on their device (``device`` moves them) and are
     normalized with ``l2_normalize``; numpy inputs are normalized on the
     host and sent to ``device`` (default: the card). Only the two (n1,)
-    result vectors cross back. ``matmul_dtype=torch.bfloat16`` rounds the
-    normalized inputs to bf16 before the float32 ranking. ``row_block``
-    sizes the plain version's row blocks on the CPU.
+    result vectors cross back. ``matmul_dtype=torch.bfloat16`` ranks as the
+    JAX engine does: the normalized inputs are rounded to bf16, the gold
+    score is the sum of their products in bf16 (then float32), and the
+    ranking and the CSLS penalties take float32 copies of the rounded
+    inputs. ``row_block`` sizes the plain version's row blocks on the CPU.
 
     ``mesh`` (a ``parallel.context.MeshContext``): the ranking goes through
     the ring over the mesh's dp ranks (eval/ring.py), both sides split over
@@ -83,14 +85,16 @@ def rank_and_align(embed1, embed2, normalize: bool = True, csls_k: int = 0,
             e2 = _normalize_np(e2)
         d1 = torch.as_tensor(e1, dtype=torch.float32, device=dev)
         d2 = torch.as_tensor(e2, dtype=torch.float32, device=dev)
-    if matmul_dtype != torch.float32:
-        d1 = d1.to(matmul_dtype).float()
-        d2 = d2.to(matmul_dtype).float()
-    d1, d2 = d1.contiguous(), d2.contiguous()
     n1 = d1.shape[0]
+    if matmul_dtype != torch.float32:
+        h1, h2 = d1.to(matmul_dtype), d2.to(matmul_dtype)
+        gold = torch.sum(h1 * h2[:n1], dim=1).float()
+        d1, d2 = h1.float(), h2.float()
+    else:
+        gold = torch.sum(d1 * d2[:n1], dim=1)
+    d1, d2 = d1.contiguous(), d2.contiguous()
 
     r2 = None
-    gold = torch.sum(d1 * d2[:n1], dim=1)
     if csls_k > 0:
         _, r2 = csls_penalties_blockwise(d1, d2, csls_k, col_block=col_block)
         # adjusted gold: 2*s_ii - r2_i (r1_i is constant within the row)

@@ -34,9 +34,9 @@ _SIGNATURES = {
     "fused_row_adagrad": [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
                           ctypes.c_int, ctypes.c_float, ctypes.c_float, _P],
     "rank_count": [_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, _P, _P, _P, _P, _P],
+                   ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P],
     "rank_count_plan": [ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                        ctypes.c_int, _P],
+                        ctypes.c_int, ctypes.c_int, _P],
 }
 
 _lock = threading.Lock()

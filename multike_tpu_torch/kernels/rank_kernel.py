@@ -9,10 +9,13 @@ CSLS column penalty ``r2`` is given):
     best_idx_i = first j of max_j s_ij,   best_val_i = that max
 
 :func:`rank_count` follows its tensors' device: on the CPU it runs the plain
-version, on a CUDA device it launches the kernel (or raises). ``launches``
-counts the calls that launch it, one per call (the C entry point launches
-a small kernel that lays out the inputs, the rank kernel, and a small
-kernel that unpacks its argmax keys).
+version, on a CUDA device it launches the kernel (or raises), at any d.
+``launches`` counts the calls that launch it, one per call (the C entry
+point launches a small kernel that lays out the inputs, the rank kernel,
+and a small kernel that unpacks its argmax keys). The kernel has two
+plans, which give bitwise-equal outputs: "resident" keeps a CTA's row
+block of e1 in shared memory, which bounds d; "streamed" feeds it through
+the copy ring at any d. The kernel picks one (:func:`plan`).
 """
 from __future__ import annotations
 
@@ -28,11 +31,8 @@ launches = 0
 
 # Element budget of one (rows, columns) score block of the plain version.
 _PLAIN_TILE_ELEMS = 256 * 1024 * 1024
-# Largest d the kernel's shared memory takes: a CTA holds its row block of
-# e1 (128 x d rounded up to 4, float32) beside its 51,712 bytes of ring,
-# gold scores and columns and per-thread row state, within 227 KB
-# (rank_kernel.cu).
-MAX_DIM = 352
+# The kernel's plans, as its C entry points number them (0: it picks).
+PATHS = {"resident": 1, "streamed": 2}
 
 
 def plain_row_block(n1: int, n2: int) -> int:
@@ -79,7 +79,7 @@ def rank_count_plain(e1, gold, gold_idx, e2, r2: Optional[torch.Tensor] = None,
             torch.cat(vals))
 
 
-def _check(e1, gold, gold_idx, e2, r2, max_dim: Optional[int] = MAX_DIM):
+def _check(e1, gold, gold_idx, e2, r2):
     n1, d = e1.shape
     tensors = {"e1": e1, "gold": gold, "e2": e2}
     if r2 is not None:
@@ -99,8 +99,6 @@ def _check(e1, gold, gold_idx, e2, r2, max_dim: Optional[int] = MAX_DIM):
         raise ValueError("gold and gold_idx must be (n1,)")
     if r2 is not None and r2.shape != (e2.shape[0],):
         raise ValueError("r2 must be (n2,)")
-    if max_dim is not None and d > max_dim:
-        raise ValueError(f"d = {d} exceeds the kernel's {max_dim}")
     for name, t in tensors.items():
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -108,47 +106,62 @@ def _check(e1, gold, gold_idx, e2, r2, max_dim: Optional[int] = MAX_DIM):
             raise ValueError(f"{name} is on {t.device}, e1 on {e1.device}")
 
 
+def _path_code(path: Optional[str]) -> int:
+    if path is None:
+        return 0
+    if path not in PATHS:
+        raise ValueError(f"unknown plan {path!r}: one of {sorted(PATHS)}")
+    return PATHS[path]
+
+
 @functools.lru_cache(maxsize=64)
-def _plan(n1: int, n2: int, d: int, csls: bool, device_index: int):
-    out = (ctypes.c_longlong * 5)()
+def _plan(n1: int, n2: int, d: int, csls: bool, path: int,
+          device_index: int):
+    out = (ctypes.c_longlong * 7)()
     lib = _build.load()
     with torch.cuda.device(device_index):
-        err = lib.rank_count_plan(n1, n2, d, int(csls), out)
+        err = lib.rank_count_plan(n1, n2, d, int(csls), path, out)
     _build.check(err, "rank_count_plan")
     return tuple(out)
 
 
-def plan(n1: int, n2: int, d: int, csls: bool = False, device=None) -> dict:
-    """The kernel's launch on a CUDA device: ``tiles`` (128 x 128 (row
-    block, column tile) pairs), ``ctas`` (the grid: one CTA per resident
-    slot, at most one per tile), ``resident`` (CTA slots the card holds at
+def plan(n1: int, n2: int, d: int, csls: bool = False, device=None,
+         _path: Optional[str] = None) -> dict:
+    """The kernel's launch on a CUDA device: ``path`` ("resident" or
+    "streamed"), ``tiles`` (128 x 128 (row block, column tile) pairs),
+    ``ctas`` (the grid: one CTA per resident slot, at most one per tile),
+    ``ctas_per_sm`` and ``resident`` (CTA slots an SM and the card hold at
     once), ``waves`` (1 by construction), the most and fewest tiles a CTA
-    takes, ``smem`` bytes per CTA and ``workspace`` bytes."""
+    takes, ``smem`` bytes per CTA and ``workspace`` bytes. ``_path`` plans a
+    forced plan instead of the kernel's pick (for tests and measurement)."""
     index = torch.device("cuda" if device is None else device).index
-    tiles, ctas, resident, smem, workspace = _plan(
-        n1, n2, d, csls,
+    tiles, ctas, resident, smem, workspace, code, per_sm = _plan(
+        n1, n2, d, csls, _path_code(_path),
         torch.cuda.current_device() if index is None else index)
-    return dict(tiles=tiles, ctas=ctas, resident=resident,
-                waves=-(-ctas // resident), tiles_per_cta_max=-(-tiles // ctas),
+    path = {v: k for k, v in PATHS.items()}[code]
+    return dict(path=path, tiles=tiles, ctas=ctas, ctas_per_sm=per_sm,
+                resident=resident, waves=-(-ctas // resident),
+                tiles_per_cta_max=-(-tiles // ctas),
                 tiles_per_cta_min=tiles // ctas, smem=smem,
                 workspace=workspace)
 
 
 def rank_count(e1, gold, gold_idx, e2, r2: Optional[torch.Tensor] = None,
-               row_block: Optional[int] = None):
+               row_block: Optional[int] = None, _path: Optional[str] = None):
     """Returns ``(count int32, best_idx int32, best_val float32)``, each
     (n1,). ``row_block`` sizes the plain version's blocks on the CPU; the
-    kernel picks its own tiles. On the card the call allocates a workspace
-    for the kernel's k-major copies of e1 and e2 (``plan()["workspace"]``
-    bytes). The checks are the same on both devices, but for the kernel's
-    limit on d."""
+    kernel picks its own tiles and plan. On the card the call allocates a
+    workspace for the kernel's k-major copies of e1 and e2
+    (``plan()["workspace"]`` bytes). The checks are the same on both
+    devices. ``_path`` forces the kernel's plan (for tests and measurement;
+    the plain version has none)."""
     global launches
+    code = _path_code(_path)
+    _check(e1, gold, gold_idx, e2, r2)
     if e1.device.type == "cpu":
-        _check(e1, gold, gold_idx, e2, r2, max_dim=None)
         return rank_count_plain(e1, gold, gold_idx, e2, r2, row_block)
     if e1.device.type != "cuda":
         raise ValueError(f"unsupported device {e1.device}")
-    _check(e1, gold, gold_idx, e2, r2)
     (n1, d), n2 = e1.shape, e2.shape[0]
     count = torch.empty(n1, dtype=torch.int32, device=e1.device)
     best_idx = torch.empty(n1, dtype=torch.int32, device=e1.device)
@@ -156,14 +169,14 @@ def rank_count(e1, gold, gold_idx, e2, r2: Optional[torch.Tensor] = None,
     if n1 == 0:
         return count, best_idx, best_val
     workspace = torch.empty(
-        plan(n1, n2, d, r2 is not None, e1.device)["workspace"],
+        plan(n1, n2, d, r2 is not None, e1.device, _path)["workspace"],
         dtype=torch.uint8, device=e1.device)
     lib = _build.load()
     with torch.cuda.device(e1.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.rank_count(
             e1.data_ptr(), e2.data_ptr(), gold.data_ptr(), gold_idx.data_ptr(),
-            None if r2 is None else r2.data_ptr(), n1, n2, d,
+            None if r2 is None else r2.data_ptr(), n1, n2, d, code,
             workspace.data_ptr(), count.data_ptr(), best_idx.data_ptr(),
             best_val.data_ptr(), stream)
     _build.check(err, "rank_count")

@@ -21,9 +21,10 @@ def dev():
     return torch.device("cuda")
 
 
-def test_fused_row_adagrad_matches_plain(dev):
+@pytest.mark.parametrize("d", [75, 384])
+def test_fused_row_adagrad_matches_plain(dev, d):
     g = torch.Generator(device=dev).manual_seed(0)
-    E, d, N = 5000, 75, 3000
+    E, N = 5000, 3000
     param = torch.randn(E, d, device=dev, generator=g)
     acc = torch.rand(E, d, device=dev, generator=g) + 0.1
     u = torch.unique(torch.randint(0, E, (N,), device=dev, generator=g))
@@ -80,13 +81,14 @@ def test_rank_count_matches_plain(dev, csls):
                                atol=1e-5)
 
 
-def _rank_twice(e1, gold, gidx, e2, r2):
-    """Two kernel calls: each adds exactly one launch, and the outputs are
-    bitwise equal (the cross-CTA merge does not depend on order)."""
+def _rank_twice(e1, gold, gidx, e2, r2, path=None):
+    """Two kernel calls (``path``: a forced plan): each adds exactly one
+    launch, and the outputs are bitwise equal (the cross-CTA merge does not
+    depend on order)."""
     n = rk.launches
-    first = rk.rank_count(e1, gold, gidx, e2, r2)
+    first = rk.rank_count(e1, gold, gidx, e2, r2, _path=path)
     assert rk.launches == n + 1
-    second = rk.rank_count(e1, gold, gidx, e2, r2)
+    second = rk.rank_count(e1, gold, gidx, e2, r2, _path=path)
     assert rk.launches == n + 2
     torch.cuda.synchronize()
     for a, b in zip(first, second):
@@ -95,18 +97,19 @@ def _rank_twice(e1, gold, gidx, e2, r2):
 
 
 @pytest.mark.parametrize("csls", [False, True])
-@pytest.mark.parametrize("d", [1, 13, 75, rk.MAX_DIM])
+@pytest.mark.parametrize("d", [1, 13, 75, 352, 353, 512, 1024])
 @pytest.mark.parametrize("n1,n2", [(50, 100), (300, 1000), (2000, 3000)])
 def test_rank_count_decomposition_exact(dev, n1, n2, d, csls):
     """Row blocks and column tiles at every edge: n1 below one 128-row
     block and not a multiple of it, n2 below one 128-column tile and not a
     multiple of it, and (2000 x 3000: 384 tiles) more tiles than resident
-    CTAs, so CTA ranges cross row blocks and split rows between CTAs. The
-    entries are small integers, so every score is an exact integer in any
-    summation order: kernel and plain version must agree exactly, on the
-    many ties too. Half the rows get a gold below their gold column's own
-    score, which only the gold-column exclusion keeps out of the count;
-    row 0's maximum is duplicated in two column tiles."""
+    CTAs, so CTA ranges cross row blocks and split rows between CTAs; d on
+    either plan, past the 352 the resident plan holds too. The entries are
+    small integers, so every score is an exact integer in any summation
+    order: kernel and plain version must agree exactly, on the many ties
+    too. Half the rows get a gold below their gold column's own score,
+    which only the gold-column exclusion keeps out of the count; row 0's
+    maximum is duplicated in two column tiles."""
     rng = np.random.RandomState(n1 + d + int(csls))
     e1 = rng.randint(-3, 4, (n1, d)).astype(np.float32)
     e2 = rng.randint(-3, 4, (n2, d)).astype(np.float32)
@@ -130,11 +133,14 @@ def test_rank_count_decomposition_exact(dev, n1, n2, d, csls):
     assert int(bi[0]) <= dup[0] and float(bv[0]) == float(s[0].max())
 
 
+@pytest.mark.parametrize("path", [None, "streamed"])
 @pytest.mark.parametrize("csls", [False, True])
-def test_rank_count_signed_zero_max(dev, csls):
+def test_rank_count_signed_zero_max(dev, csls, path):
     """A maximum of 0.0 from a column of -0.0 entries and from a later one
     of +0.0 entries, in the same tile and in two tiles: the earlier column
-    wins, as in the plain version, because -0.0 and +0.0 are one value."""
+    wins, as in the plain version, because -0.0 and +0.0 are one value. On
+    the plan the kernel picks (resident at this d) and on the streamed
+    one."""
     n2, d = 300, 8
     e1 = torch.eye(2, d, device=dev)
     e2 = -torch.ones(n2, d, device=dev)                 # every score -1 ...
@@ -144,20 +150,23 @@ def test_rank_count_signed_zero_max(dev, csls):
     gold = torch.full((2,), -2.0, device=dev)
     gidx = torch.tensor([0, 1], dtype=torch.int32, device=dev)
     r2 = torch.zeros(n2, device=dev) if csls else None
-    c, bi, bv = _rank_twice(e1, gold, gidx, e2, r2)
+    c, bi, bv = _rank_twice(e1, gold, gidx, e2, r2, path)
     assert bi.tolist() == [5, 6]
     assert bv.tolist() == [0.0, 0.0]
     c2, bi2, _ = rk.rank_count_plain(e1, gold, gidx, e2, r2)
     assert torch.equal(c, c2) and torch.equal(bi, bi2)
 
 
+@pytest.mark.parametrize("d,path", [(75, None), (75, "streamed"),
+                                    (512, None)])
 @pytest.mark.parametrize("csls", [False, True])
-def test_rank_count_gold_outside_block(dev, csls):
+def test_rank_count_gold_outside_block(dev, csls, d, path):
     """The ring's call: a block of columns whose rows' gold columns lie in
     other blocks, as gold indices below 0 and from n2 on (``gold_idx -
     col0``). No column is excluded then, so every column that beats the
-    gold counts; kernel and plain version agree exactly (integer scores)."""
-    n1, n2, d = 300, 700, 75
+    gold counts; kernel and plain version agree exactly (integer scores),
+    on either plan."""
+    n1, n2 = 300, 700
     rng = np.random.RandomState(7 + int(csls))
     e1 = rng.randint(-3, 4, (n1, d)).astype(np.float32)
     e2 = rng.randint(-3, 4, (n2, d)).astype(np.float32)
@@ -170,8 +179,42 @@ def test_rank_count_gold_outside_block(dev, csls):
     gold = np.median(s, axis=1).astype(np.float32)
     t = [torch.as_tensor(x, device=dev) for x in (e1, gold, gidx, e2)]
     rt = None if r2 is None else torch.as_tensor(r2, device=dev)
-    c, bi, bv = _rank_twice(*t, rt)
+    c, bi, bv = _rank_twice(*t, rt, path)
     c2, bi2, bv2 = rk.rank_count_plain(*t, rt)
     assert torch.equal(c, c2) and torch.equal(bi, bi2)
     assert torch.equal(bv, bv2)
     assert c.cpu().tolist() == (s > gold[:, None]).sum(1).tolist()
+
+
+@pytest.mark.parametrize("csls", [False, True])
+@pytest.mark.parametrize("d", [75, 128, 352])
+def test_rank_count_plans_bitwise_equal(dev, d, csls):
+    """Where both plans fit, the streamed plan's outputs are bitwise those
+    of the resident plan on random (not integer) scores: both sum k in the
+    same order with fmaf."""
+    g = torch.Generator(device=dev).manual_seed(d)
+    n1, n2 = 1000, 3000
+    e1 = torch.randn(n1, d, device=dev, generator=g)
+    e2 = torch.randn(n2, d, device=dev, generator=g)
+    r2 = torch.rand(n2, device=dev, generator=g) if csls else None
+    gold = (e1 * e2[:n1]).sum(1)
+    gidx = torch.arange(n1, dtype=torch.int32, device=dev)
+    res = _rank_twice(e1, gold, gidx, e2, r2, "resident")
+    st = _rank_twice(e1, gold, gidx, e2, r2, "streamed")
+    for a, b in zip(res, st):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert [rk.plan(n1, n2, d, csls, _path=p)["path"]
+            for p in ("resident", "streamed")] == ["resident", "streamed"]
+
+
+def test_rank_count_plan_choice(dev):
+    """The kernel keeps d = 75 on the resident plan, two CTAs an SM; past
+    352 only the streamed plan fits, two CTAs an SM at any d; forcing the
+    resident plan there fails."""
+    p75 = rk.plan(35_000, 70_000, 75)
+    assert (p75["path"], p75["ctas_per_sm"], p75["waves"]) == ("resident", 2, 1)
+    for d in (353, 512, 1024, 4096):
+        p = rk.plan(35_000, 70_000, d)
+        assert (p["path"], p["ctas_per_sm"], p["waves"]) == ("streamed", 2, 1)
+    with pytest.raises(RuntimeError):
+        rk.plan(1000, 1000, 353, _path="resident")

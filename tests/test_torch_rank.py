@@ -1,7 +1,11 @@
 """The plain version of the port's rank kernel (K2) against the JAX
 package's ``rank_count_pallas`` in interpret mode, and the port's
 ``rank_and_align`` / ``greedy_alignment`` against the JAX ones on its XLA
-engine. Counts and argmax must be exactly equal."""
+engine and through ``rank_count_pallas`` in interpret mode, at narrow
+widths and past the 352 that the kernel's resident plan holds, in float32
+and bfloat16. Counts and argmax must be exactly equal."""
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -10,6 +14,7 @@ import jax.numpy as jnp
 
 from multike_tpu.eval import alignment as jal
 from multike_tpu.eval.similarity import csls_sim
+from multike_tpu.kernels import rank_kernel as jrk
 from multike_tpu.kernels.rank_kernel import rank_count_pallas
 from multike_tpu_torch.eval import alignment as tal
 from multike_tpu_torch.kernels import rank_kernel as trk
@@ -30,9 +35,12 @@ def _setup(seed, n1, n2, d):
     return e1n, e2n, gold, gidx
 
 
-@pytest.mark.parametrize("row_block", [None, 7])
-def test_rank_plain_matches_pallas(row_block):
-    n1, n2, d = 100, 230, 16
+@pytest.mark.parametrize("row_block,n1,n2,d", [
+    pytest.param(None, 100, 230, 16, id="None"),
+    pytest.param(7, 100, 230, 16, id="7"),
+    pytest.param(None, 200, 300, 353, id="None-d353"),
+    pytest.param(7, 200, 300, 512, id="7-d512")])
+def test_rank_plain_matches_pallas(row_block, n1, n2, d):
     e1, e2, gold, gidx = _setup(3, n1, n2, d)
     cnt, bidx, bval = rank_count_pallas(
         jnp.asarray(e1), jnp.asarray(gold), jnp.asarray(gidx),
@@ -123,8 +131,8 @@ def test_rank_plain_col_block_matches_pallas(col_block, csls):
 
 
 def test_rank_count_checks_on_cpu():
-    """rank_count checks its inputs on the CPU as on the card, but for the
-    kernel's limit on d, which the plain version does not have."""
+    """rank_count checks its inputs on the CPU as on the card; neither
+    limits d."""
     e1, e2 = torch.zeros(4, 3), torch.zeros(5, 3)
     gold, gidx = torch.zeros(4), torch.zeros(4, dtype=torch.int32)
     with pytest.raises(TypeError):
@@ -137,9 +145,11 @@ def test_rank_count_checks_on_cpu():
         trk.rank_count(e1, gold, gidx, e2, torch.zeros(4))
     with pytest.raises(ValueError):
         trk.rank_count(e1, gold, gidx, torch.zeros(0, 3))
-    d = trk.MAX_DIM + 1
+    with pytest.raises(ValueError):
+        trk.rank_count(e1, gold, gidx, e2, _path="tiled")
+    d = 353
     cnt, bidx, _ = trk.rank_count(torch.ones(4, d), gold, gidx,
-                                  torch.ones(5, d))
+                                  torch.ones(5, d), _path="streamed")
     assert cnt.tolist() == [4] * 4 and bidx.tolist() == [0] * 4
 
 
@@ -156,22 +166,35 @@ def test_rank_plain_ties_first_index_and_gold_excluded():
     assert cnt.tolist() == [2, 0] and bidx.tolist() == [2, 0]
 
 
-@pytest.mark.parametrize("tensors", [False, True])
-@pytest.mark.parametrize("csls_k", [0, 3])
-def test_rank_and_align_matches_jax(tensors, csls_k):
-    rng = np.random.RandomState(5 + csls_k)
-    n1, n2, d = 90, 140, 12
+def _wide_cases():
+    """d past the resident plan's 352, CSLS off and k=5, against the JAX
+    engine on XLA and through ``rank_count_pallas`` (interpret mode)."""
+    return [pytest.param(k, tensors, 200, 300, d, pallas,
+                         id=f"{k}-{tensors}-d{d}-{'pallas' if pallas else 'xla'}")
+            for d in (353, 512) for k in (0, 5)
+            for tensors, pallas in ((True, False), (False, True))]
+
+
+@pytest.mark.parametrize("csls_k,tensors,n1,n2,d,pallas", [
+    pytest.param(k, t, 90, 140, 12, False, id=f"{k}-{t}")
+    for k in (0, 3) for t in (False, True)] + _wide_cases())
+def test_rank_and_align_matches_jax(monkeypatch, csls_k, tensors, n1, n2, d,
+                                    pallas):
+    if pallas:
+        monkeypatch.setattr(jrk, "rank_count_pallas", functools.partial(
+            rank_count_pallas, interpret=True))
+    rng = np.random.RandomState(5 + csls_k + d)
     e1 = rng.randn(n1, d).astype(np.float32)
     e2 = rng.randn(n2, d).astype(np.float32)
     e2[:n1] += 1.5 * e1
     if tensors:
         want = jal.rank_and_align(jnp.asarray(e1), jnp.asarray(e2),
-                                  csls_k=csls_k, use_pallas=False,
+                                  csls_k=csls_k, use_pallas=pallas,
                                   col_block=32)
         got = tal.rank_and_align(torch.tensor(e1), torch.tensor(e2),
                                  csls_k=csls_k, col_block=32, row_block=17)
     else:
-        want = jal.rank_and_align(e1, e2, csls_k=csls_k, use_pallas=False,
+        want = jal.rank_and_align(e1, e2, csls_k=csls_k, use_pallas=pallas,
                                   col_block=32)
         got = tal.rank_and_align(e1, e2, csls_k=csls_k, col_block=32,
                                  device="cpu")
@@ -180,13 +203,51 @@ def test_rank_and_align_matches_jax(tensors, csls_k):
         np.testing.assert_array_equal(g, w)
 
 
-@pytest.mark.parametrize("metric,csls_k", [("inner", 0), ("cosine", 2),
-                                           ("euclidean", 0)])
-def test_greedy_alignment_matches_jax(metric, csls_k):
+def _bf16_pair():
+    """600 x 75 against 900 x 75, the first 600 rows of e2 near e1's: at
+    these margins the gold score's rounding moves ranks: a gold summed in
+    float32 instead of bf16 changes 27 of the 600 ranks (24 with CSLS
+    k=5)."""
+    rng = np.random.RandomState(0)
+    e1 = rng.randn(600, 75).astype(np.float32)
+    e2 = rng.randn(900, 75).astype(np.float32)
+    e2[:600] = e1 + 2.5 * rng.randn(600, 75).astype(np.float32)
+    return e1, e2
+
+
+@pytest.mark.parametrize("tensors", [False, True])
+@pytest.mark.parametrize("csls_k", [0, 5])
+def test_rank_and_align_bf16_matches_jax(csls_k, tensors):
+    """``matmul_dtype`` bf16 ranks as the JAX engine does: the gold score is
+    summed in bf16 from the rounded inputs, the ranking takes float32 copies
+    of them."""
+    e1, e2 = _bf16_pair()
+    if tensors:
+        want = jal.rank_and_align(jnp.asarray(e1), jnp.asarray(e2),
+                                  csls_k=csls_k, use_pallas=False,
+                                  matmul_dtype=jnp.bfloat16)
+        got = tal.rank_and_align(torch.tensor(e1), torch.tensor(e2),
+                                 csls_k=csls_k, matmul_dtype=torch.bfloat16)
+    else:
+        want = jal.rank_and_align(e1, e2, csls_k=csls_k, use_pallas=False,
+                                  matmul_dtype=jnp.bfloat16)
+        got = tal.rank_and_align(e1, e2, csls_k=csls_k, device="cpu",
+                                 matmul_dtype=torch.bfloat16)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("metric,csls_k,n1,n2,d", [
+    pytest.param("inner", 0, 50, 60, 10, id="inner-0"),
+    pytest.param("cosine", 2, 50, 60, 10, id="cosine-2"),
+    pytest.param("euclidean", 0, 50, 60, 10, id="euclidean-0"),
+    pytest.param("inner", 5, 200, 300, 353, id="inner-5-d353"),
+    pytest.param("cosine", 0, 200, 300, 512, id="cosine-0-d512")])
+def test_greedy_alignment_matches_jax(metric, csls_k, n1, n2, d):
     rng = np.random.RandomState(11)
-    e1 = rng.randn(50, 10).astype(np.float32)
-    e2 = rng.randn(60, 10).astype(np.float32)
-    e2[:50] += e1
+    e1 = rng.randn(n1, d).astype(np.float32)
+    e2 = rng.randn(n2, d).astype(np.float32)
+    e2[:n1] += e1
     kw = dict(metric=metric, normalize=True, csls_k=csls_k, verbose=False)
     want = jal.greedy_alignment(e1, e2, [1, 5, 10], 1, use_pallas=False, **kw)
     got = tal.greedy_alignment(e1, e2, [1, 5, 10], 1, device="cpu", **kw)
@@ -205,6 +266,7 @@ def test_stable_alignment_matches_jax():
 
 
 def test_rank_kernel_wrapper_checks():
+    """The checks of the kernel's wrapper; no width is refused."""
     e1 = torch.zeros(4, 3)
     e2 = torch.zeros(5, 3)
     gold = torch.zeros(4)
@@ -218,6 +280,6 @@ def test_rank_kernel_wrapper_checks():
         trk._check(e1, gold, gidx, e2, torch.zeros(4))
     with pytest.raises(ValueError):
         trk._check(torch.zeros(3, 4).T, gold, gidx, e2, None)
-    with pytest.raises(ValueError):
-        trk._check(torch.zeros(4, trk.MAX_DIM + 1), gold, gidx,
-                   torch.zeros(5, trk.MAX_DIM + 1), None)
+    for d in (353, 512, 1024):
+        trk._check(torch.zeros(4, d), gold, gidx, torch.zeros(5, d),
+                   torch.zeros(5))

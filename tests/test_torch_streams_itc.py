@@ -4,8 +4,9 @@ One step of attr_view, ckge_attr, ckga_attr, ckgp_rel, common_space and the
 truncated rel_view, from the same parameters, accumulators and injected
 batches (and pools), against a JAX step composed from the package's parts
 (``streams._make_stream_update`` with the JAX losses and conv scorer), on
-the row-sparse and the dense-Adagrad branch; tolerance rtol 3e-5 /
-atol 1e-6, as in tests/test_torch_rel_view.py. Then the neighbor refresh
+the row-sparse and the dense-Adagrad branch, and the attribute streams
+and common_space at d = 384 too; tolerance rtol 3e-5 / atol 1e-6, as in
+tests/test_torch_rel_view.py. Then the neighbor refresh
 against the JAX exact top-k (per-row sets), the neighbor-pool sampler's
 source properties (tests/test_neg_schemes.py) and the epochs' step counts.
 """
@@ -116,13 +117,13 @@ def _j_rel_view(epoch):
 # step parity
 # ---------------------------------------------------------------------------
 
-def _state(rng):
-    jparams = jp.init_params(JConfig(dim=D), E, R, A)
+def _state(rng, d=D):
+    jparams = jp.init_params(JConfig(dim=d), E, R, A)
     np_params = jax.tree_util.tree_map(np.asarray, jparams)
     np_acc = jax.tree_util.tree_map(
         lambda x: (0.1 + rng.rand(*x.shape)).astype(np.float32), np_params)
-    consts = {"name_embeds": rng.normal(size=(E, D)).astype(np.float32),
-              "literal_embeds": rng.normal(size=(L, D)).astype(np.float32)}
+    consts = {"name_embeds": rng.normal(size=(E, d)).astype(np.float32),
+              "literal_embeds": rng.normal(size=(L, d)).astype(np.float32)}
     consts["name_embeds"] /= np.linalg.norm(consts["name_embeds"], axis=1,
                                             keepdims=True)
     return np_params, np_acc, consts
@@ -177,14 +178,20 @@ STREAMS = ("attr_view", "ckge_attr", "ckga_attr", "ckgp_rel", "common_space",
            "rel_view")
 
 
-@pytest.mark.parametrize("sparse", [True, False])
-@pytest.mark.parametrize("stream", STREAMS)
-def test_stream_step_matches_jax(stream, sparse):
-    cfg = Config(row_sparse_updates=sparse, **CFG)
-    jcfg = JConfig(row_sparse_updates=sparse, **CFG)
+# every stream on both branches at width D; the conv scorer and the
+# common-space combination also at d = 384, the width at which
+# chip_smoke.py runs the ITC driver on the card
+@pytest.mark.parametrize("stream,sparse,d", [
+    pytest.param(stream, sparse, D, id=f"{stream}-{sparse}")
+    for sparse in (True, False) for stream in STREAMS] + [
+    pytest.param(stream, True, 384, id=f"{stream}-True-d384")
+    for stream in ("attr_view", "ckge_attr", "ckga_attr", "common_space")])
+def test_stream_step_matches_jax(stream, sparse, d):
+    cfg = Config(row_sparse_updates=sparse, **dict(CFG, dim=d))
+    jcfg = JConfig(row_sparse_updates=sparse, **dict(CFG, dim=d))
     assert tst.use_row_sparse(cfg, E, 1) == sparse
     rng = np.random.RandomState(STREAMS.index(stream))
-    np_params, np_acc, consts = _state(rng)
+    np_params, np_acc, consts = _state(rng, d)
     step, (jprep, jloss), batch, with_consts = _case(stream, cfg, jcfg, rng)
     names = jst.STREAM_VARS[stream]
 
