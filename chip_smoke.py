@@ -5,6 +5,9 @@
     python3 chip_smoke.py --k2-of DIR   # phases 1 and 3 only, for the
                                         # package under DIR (for example an
                                         # earlier commit, from git archive)
+    python3 chip_smoke.py --k1-of DIR   # phase 1, then DIR's
+                                        # sparse_adagrad.row_apply timed at
+                                        # phase 2's steps
 
 (``--mesh-rank TASK SPEC`` is how phase 8 starts its rank processes.)
 
@@ -12,11 +15,14 @@ Phases, each of which must pass or the script exits non-zero:
 
   1. build the CUDA kernels from ``multike_tpu_torch/csrc`` (timed), and
      report each one's registers and spills (a spill fails the run);
-  2. K1, the fused row-sparse Adagrad apply, against its plain PyTorch
-     version at the per-step shape of bench.py (200K x 75 table, the ids of
-     one batch-80000 chunk_shared step), at the same ids in a 200K x 384
-     table, and at the step shape of bench.py's reference-parity row (the
-     ids of one batch-5000 per_slot step);
+  2. K1, the whole row-sparse Adagrad apply (``row_adagrad``: dedup and
+     update, no sort), at the per-step shape of bench.py (200K x 75 table,
+     the ids of one batch-80000 chunk_shared step), at the same ids in a
+     200K x 384 table, at the step shape of bench.py's reference-parity
+     row (the ids of one batch-5000 per_slot step) and at one per-slot
+     rel_view step of phase 7's 20K pair: bitwise equal to its plain
+     version on the CPU and from launch to launch, within rtol 2e-6 / atol
+     1e-7 of its plain version on the card, timed beside its bytes bound;
   3. K2, the fused rank count, against its plain version at 35K x 70K,
      d=75, and at the main path's own 6K x 6K and 2K x 8K, then in CSLS
      form; at each shape it is timed beside the plain version and
@@ -246,102 +252,198 @@ def phase_build():
         check(info.get("spill_bytes") == 0, f"{name} spills to local memory")
 
 
-def phase_apply(dev, peaks, n_ent=100_000, rel_triples=600_000, seed=0):
-    """K1 against its plain version on the ids of one bench.py step
-    (chunk_shared, batch 80000), then on those of one step of bench.py's
-    reference-parity row (per_slot, batch 5000)."""
+def k1_steps(dev, n_ent=100_000, rel_triples=600_000, ssl_n=20_000,
+             seed=0):
+    """The ids of phase 2's K1 steps, drawn by the port's rel_view epochs:
+    one bench.py step (chunk_shared, batch 80000) into a 200K x 75 table,
+    the same ids at phase 9's width, one step of bench.py's
+    reference-parity row (per_slot, batch 5000), and one per-slot rel_view
+    step of the SSL cell (phase 7's 20K synthetic pair, batch 5000).
+    Returns [(label, ids, rows, d)]."""
     import numpy as np
     import torch
 
     from multike_tpu_torch.config import Config
+    from multike_tpu_torch.data.kg import triples_to_array
     from multike_tpu_torch.train import streams
 
+    per_slot = dict(dim=75, batch_size=5000, neg_triple_num=10,
+                    neg_scheme="per_slot", truncated_neg_scheme="per_slot")
     rng = np.random.RandomState(seed)
-    t1 = torch.as_tensor(bench_triples(rng, rel_triples, 0, n_ent, 500, 0),
-                         device=dev)
-    t2 = torch.as_tensor(bench_triples(rng, rel_triples, n_ent, 2 * n_ent,
-                                       500, 500), device=dev)
-    cases = {}
-    for label, cfg in (
-            ("chunk_shared", Config(dim=75, batch_size=80_000,
-                                    neg_triple_num=10)),
-            ("per_slot", Config(dim=75, batch_size=5000, neg_triple_num=10,
-                                neg_scheme="per_slot",
-                                truncated_neg_scheme="per_slot"))):
-        epoch, _, _ = streams.build_rel_view_epoch(
-            cfg, rel_triples, rel_triples, ((0, n_ent), (n_ent, 2 * n_ent)))
+    bench = (bench_triples(rng, rel_triples, 0, n_ent, 500, 0),
+             bench_triples(rng, rel_triples, n_ent, 2 * n_ent, 500, 500),
+             ((0, n_ent), (n_ent, 2 * n_ent)), 2 * n_ent)
+    kgs = synthetic_kgs(ssl_n)
+    ssl = (triples_to_array(kgs.kg1.local_relation_triples_set),
+           triples_to_array(kgs.kg2.local_relation_triples_set),
+           kgs.entity_id_ranges(), kgs.entities_num)
+
+    def step_ids(cfg, tr1, tr2, ranges):
+        epoch, _, _ = streams.build_rel_view_epoch(cfg, len(tr1), len(tr2),
+                                                   ranges)
         gen = torch.Generator(device=dev).manual_seed(seed)
-        xs = [x[0] for x in epoch.draw(gen, t1, t2)]
-        ids, _ = epoch._prep(*xs)
-        cases[label] = _k1_case(dev, peaks, ids["rv_ent"], 2 * n_ent,
-                                cfg.dim, seed, label)
-        if label == "chunk_shared":      # the same ids, at phase 9's width
-            cases["wide"] = _k1_case(dev, peaks, ids["rv_ent"], 2 * n_ent,
-                                     WIDE_DIM, seed, f"{label} d={WIDE_DIM}")
+        t1, t2 = (torch.as_tensor(t, dtype=torch.long, device=dev)
+                  for t in (tr1, tr2))
+        return epoch._prep(*(x[0] for x in epoch.draw(gen, t1, t2)))[0][
+            "rv_ent"]
+
+    chunk = step_ids(Config(dim=75, batch_size=80_000, neg_triple_num=10),
+                     *bench[:3])
+    return [("chunk_shared", chunk, bench[3], 75),
+            ("per_slot", step_ids(Config(**per_slot), *bench[:3]), bench[3],
+             75),
+            ("wide", chunk, bench[3], WIDE_DIM),
+            ("ssl_cell", step_ids(Config(**per_slot), *ssl[:3]), ssl[3], 75)]
+
+
+def _k1_inputs(dev, ids, rows, d, seed):
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    param = torch.randn(rows, d, device=dev, generator=g)
+    acc = torch.rand(rows, d, device=dev, generator=g) + 0.1
+    g_rows = torch.randn(ids.shape[0], d, device=dev, generator=g)
+    return param, acc, g_rows
+
+
+def k1_bound_ms(n, unique, d, mem_rate):
+    """The whole apply's bytes bound: the int64 ids and the gradient rows
+    read once, each touched row of param and acc read and written once."""
+    return (n * (8 + 4 * d) + 16 * unique * d) / mem_rate * 1e3
+
+
+def phase_apply(dev, peaks, seed=0, **sizes):
+    """K1 (``row_adagrad``, the whole row-sparse apply) at each step of
+    ``k1_steps``: bitwise equal to its plain version on the CPU, two
+    launches bitwise equal, untouched rows untouched, within rtol 2e-6 /
+    atol 1e-7 of its plain version on the card (whose dedup sums with
+    atomics), and its time beside the bound and the plain version's."""
+    cases = {label: _k1_case(dev, peaks, ids, rows, d, seed, label)
+             for label, ids, rows, d in k1_steps(dev, seed=seed, **sizes)}
     main = cases["chunk_shared"]
     return dict(name="fused_row_adagrad", route="cuda",
                 source="multike_tpu_torch/csrc/apply_kernel.cu",
                 replaces="multike_tpu/kernels/apply_kernel.py:144",
+                wrapper="multike_tpu_torch.kernels.apply_kernel.row_adagrad",
                 max_abs_err=max(c["max_abs_err"] for c in cases.values()),
+                cpu_plain_bitwise=all(c["cpu_plain_bitwise"]
+                                      for c in cases.values()),
                 ms=main["ms"], plain_ms=main["plain_ms"],
                 bound_ms=main["bound_ms"], bound_by="bytes", library_ms=None,
                 shape=main["shape"], per_slot_step=cases["per_slot"],
-                wide_step=cases["wide"])
+                wide_step=cases["wide"], ssl_cell_step=cases["ssl_cell"])
 
 
-def _k1_case(dev, peaks, ids, E, d, seed, label):
-    """K1 on one step's ids into an (E, d) table: equal to the plain
-    version, untouched rows untouched, and its time beside the bound."""
+def _k1_case(dev, peaks, ids, rows, d, seed, label):
+    """K1 on one step's ids into a (rows, d) table."""
     import torch
 
     from multike_tpu_torch.kernels import apply_kernel as ak
-    from multike_tpu_torch.train import sparse_adagrad
 
-    N = ids.shape[0]
-    g = torch.Generator(device=dev).manual_seed(seed + 1)
-    param = torch.randn(E, d, device=dev, generator=g)
-    acc = torch.rand(E, d, device=dev, generator=g) + 0.1
-    g_rows = torch.randn(N, d, device=dev, generator=g)
-    loc, gsum = sparse_adagrad.dedup_rows(ids, g_rows, E)
-    gsum = gsum.contiguous()
-    U = int(torch.unique(ids).numel())
+    N, lr = ids.shape[0], 0.001
+    param, acc, g_rows = _k1_inputs(dev, ids, rows, d, seed)
+    counts = torch.bincount(ids, minlength=rows)
+    U, most = int((counts > 0).sum()), int(counts.max())
     check(U < N, "the step's ids should hold duplicates")
 
-    p_k, a_k = param.clone(), acc.clone()
+    runs = []
+    for _ in range(2):
+        p, a = param.clone(), acc.clone()
+        ak.row_adagrad(p, a, ids, g_rows, lr)
+        runs.append((p, a))
     p_p, a_p = param.clone(), acc.clone()
-    ak.fused_row_adagrad(p_k, a_k, loc, gsum, 0.001)
-    ak.fused_row_adagrad_plain(p_p, a_p, loc, gsum, 0.001)
+    ak.row_adagrad_plain(p_p, a_p, ids, g_rows, lr)
     torch.cuda.synchronize()
+    p_c, a_c = (t.to("cpu", copy=True) for t in (param, acc))
+    ak.row_adagrad_plain(p_c, a_c, ids.cpu(), g_rows.cpu(), lr)
+    (p_k, a_k), (p_2, a_2) = runs
+    repeat = torch.equal(p_k, p_2) and torch.equal(a_k, a_2)
+    bitwise = torch.equal(p_k.cpu(), p_c) and torch.equal(a_k.cpu(), a_c)
+    check(repeat, f"K1 {label}: two launches differ")
+    check(bitwise, f"K1 {label}: not bitwise equal to the CPU plain version")
     err = max(float((p_k - p_p).abs().max()), float((a_k - a_p).abs().max()))
     for got, want, name in ((p_k, p_p, "param"), (a_k, a_p, "acc")):
         bad = (got - want).abs() > 1e-7 + 2e-6 * want.abs()
         check(not bool(bad.any()), f"K1 {name}: {int(bad.sum())} elements "
-              "outside rtol 2e-6 / atol 1e-7")
-    touched = torch.zeros(E, dtype=torch.bool, device=dev)
-    touched[ids] = True
+              "outside rtol 2e-6 / atol 1e-7 of the card's plain version")
+    touched = counts > 0
     check(torch.equal(p_k[~touched], param[~touched]) and
           torch.equal(a_k[~touched], acc[~touched]),
           "K1 changed rows the step does not touch")
     check(bool((a_k[touched] != acc[touched]).any(dim=1).all()),
           "K1 left a touched row's accumulator unchanged")
-    sentinels = int((loc >= E).sum())
-    check(sentinels == N - U, "dedup sentinel count")
+    del runs, p_2, a_2, p_c, a_c
 
-    ms = time_ms(lambda: ak.fused_row_adagrad(p_k, a_k, loc, gsum, 0.001), 20)
+    ms = time_ms(lambda: ak.row_adagrad(p_k, a_k, ids, g_rows, lr), 20)
     plain_ms = time_ms(
-        lambda: ak.fused_row_adagrad_plain(p_p, a_p, loc, gsum, 0.001), 5)
-    # read param, acc and gsum rows and write param and acc rows once per
-    # unique id, plus the ids; about 7 operations per element
-    nbytes = U * d * 4 * 5 + 4 * N
-    flops = 7.0 * U * d
-    mem_rate, fp32_rate = peaks
-    bound_ms = max(nbytes / mem_rate, flops / fp32_rate) * 1e3
-    log(f"[K1] {label} step, E={E} d={d} ids={N} unique={U} sentinels="
-        f"{sentinels}: max_abs_err={err:.3e} kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB "
-        f"at {mem_rate / 1e12:.2f} TB/s)")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                shape=dict(E=E, d=d, ids=N, unique=U))
+        lambda: ak.row_adagrad_plain(p_p, a_p, ids, g_rows, lr), 5)
+    passes = k1_passes_ms(lambda: ak.row_adagrad(p_k, a_k, ids, g_rows, lr))
+    mem_rate = peaks[0]
+    bound_ms = k1_bound_ms(N, U, d, mem_rate)
+    log(f"[K1] {label} step, rows={rows} d={d} ids={N} unique={U} (most "
+        f"{most} a row): kernel {ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({100 * bound_ms / ms:.1f}%; N(8 + 4d) + 16Ud bytes at "
+        f"{mem_rate / 1e12:.2f} TB/s), plain {plain_ms:.4f} ms; bitwise "
+        f"equal to the CPU plain version and run to run; {err:.3e} from the "
+        "card's plain version; passes (ms) " + ", ".join(
+            f"{k} {v:.4f}" for k, v in passes.items()))
+    return dict(max_abs_err=err, cpu_plain_bitwise=bitwise,
+                repeat_bitwise=repeat, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_share=bound_ms / ms,
+                passes_ms=passes,
+                shape=dict(rows=rows, d=d, ids=N, unique=U, most=most))
+
+
+def k1_passes_ms(run, calls: int = 10) -> dict:
+    """Device ms a call of each of K1's passes (count, place, fill, apply),
+    from torch.profiler over ``calls`` calls of ``run``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            run()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        m = re.search(r"(count|place|fill|apply)_kernel", e.name)
+        if e.device_type == DeviceType.CUDA and m:
+            out[m[1]] = out.get(m[1], 0.0) + (
+                e.time_range.end - e.time_range.start) / 1e3 / calls
+    return out
+
+
+def phase_k1_of(dev, peaks, root, seed=0, **sizes):
+    """``sparse_adagrad.row_apply`` of the package under ``root`` at each
+    step of ``k1_steps``, timed as phase 2 times K1, and, where that package
+    has them, its ``dedup_rows`` and the fused apply of (loc, gsum) that
+    earlier versions launched after it."""
+    from multike_tpu_torch.kernels import apply_kernel as ak
+    from multike_tpu_torch.train import sparse_adagrad
+
+    fused = getattr(ak, "fused_row_adagrad", None)
+    out = {}
+    for label, ids, rows, d in k1_steps(dev, seed=seed, **sizes):
+        param, acc, g_rows = _k1_inputs(dev, ids, rows, d, seed)
+        U = int(ids.unique().numel())
+        rec = dict(rows=rows, d=d, ids=ids.shape[0], unique=U,
+                   bound_ms=k1_bound_ms(ids.shape[0], U, d, peaks[0]))
+        rec["row_apply_ms"] = time_ms(lambda: sparse_adagrad.row_apply(
+            param, acc, ids, g_rows, 0.001), 20)
+        if fused is not None:
+            loc, gsum = sparse_adagrad.dedup_rows(ids, g_rows, rows)
+            gsum = gsum.contiguous()
+            rec["dedup_ms"] = time_ms(lambda: sparse_adagrad.dedup_rows(
+                ids, g_rows, rows), 20)
+            rec["fused_apply_ms"] = time_ms(lambda: fused(
+                param, acc, loc, gsum, 0.001), 20)
+        log(f"[K1-of] {label} step: " + ", ".join(
+            f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in rec.items()))
+        out[label] = rec
+    return out
 
 
 def _rank_inputs(dev, n1, n2, d, seed):
@@ -571,11 +673,23 @@ def synthetic_pair(n: int) -> str:
         n_attr_triples=3 * n)
 
 
+_KGS = {}
+
+
+def synthetic_kgs(n: int):
+    """The KG pair of ``synthetic_pair(n)``, read once."""
+    from multike_tpu_torch.data.kg import read_kgs_from_folder
+
+    if n not in _KGS:
+        _KGS[n] = read_kgs_from_folder(synthetic_pair(n), "631/",
+                                       "swapping", False)
+    return _KGS[n]
+
+
 def phase_main_path(dev, n=20_000, epochs=4, dim=75, batch=5000):
     """Train through MultiKETrainer on the synthetic pair and evaluate
     through views.valid_metrics; returns the kernels' launch counts."""
     from multike_tpu_torch.config import Config
-    from multike_tpu_torch.data.kg import read_kgs_from_folder
     from multike_tpu_torch.eval import views
     from multike_tpu_torch.kernels import apply_kernel as ak
     from multike_tpu_torch.kernels import rank_kernel as rk
@@ -583,7 +697,7 @@ def phase_main_path(dev, n=20_000, epochs=4, dim=75, batch=5000):
 
     t0 = time.time()
     folder = synthetic_pair(n)
-    kgs = read_kgs_from_folder(folder, "631/", "swapping", False)
+    kgs = synthetic_kgs(n)
     cfg = Config(training_data=folder, dim=dim, batch_size=batch,
                  neg_triple_num=10, learning_rate=0.01,
                  row_sparse_updates=True, use_pallas_apply=True)
@@ -807,24 +921,43 @@ def phase_parity(dev, card, n_ent=100_000, epochs=2):
     return out
 
 
+APPLY_RANGE = "row_apply"      # profiler range around sparse_adagrad.row_apply
+
+
 def profile_epoch(run_epoch, epoch_ms: float, top: int = 8):
     """One epoch under torch.profiler: the device's busy time (union of
     kernel and copy intervals), its share of the profiled epoch's wall time
     and of ``epoch_ms``, the same epoch's time without the profiler (which
-    slows the host, not the device), and the kernels that take the most
-    device time."""
+    slows the host, not the device), the kernels that take the most device
+    time, and the sort kernels by the op that launched them
+    (``sort_kernels``). ``sparse_adagrad.row_apply`` runs inside a
+    ``row_apply`` range, so a sort that the optimizer step launches shows
+    as such."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from multike_tpu_torch.train import sparse_adagrad
+
+    apply = sparse_adagrad.row_apply
+
+    def tagged(*a, **kw):
+        with record_function(APPLY_RANGE):
+            return apply(*a, **kw)
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run_epoch()
-        wall_us = (time.perf_counter() - t0) * 1e6
+    sparse_adagrad.row_apply = tagged
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run_epoch()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        sparse_adagrad.row_apply = apply
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA
+                   and e.name != APPLY_RANGE)   # the range's device span
     if not spans:
         log("[prof] the profiler saw no device activity: busy share not "
             "measured")
@@ -843,9 +976,50 @@ def profile_epoch(run_epoch, epoch_ms: float, top: int = 8):
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     for name, us in ranked:
         log(f"[prof]   {us / 1e3:8.3f} ms  {name[:100]}")
+    sorts = sort_kernels(prof)
+    log(f"[prof] sort kernels: {sorts['kernels']} in {sorts['ms']:.3f} ms, "
+        f"{sorts['in_row_apply']} of them under row_apply, "
+        f"{sorts['in_randperm']} under aten::randperm")
+    for g in sorts["by_op"]:
+        log(f"[prof]   {g['kernels']:5d} kernels {g['ms']:8.3f} ms  "
+            f"{' < '.join(g['stack'])}")
     return {"device_busy_share": share, "device_busy_ms": busy_us / 1e3,
             "profiled_wall_ms": wall_us / 1e3,
-            "top_device_ms": {n[:100]: us / 1e3 for n, us in ranked}}
+            "top_device_ms": {n[:100]: us / 1e3 for n, us in ranked},
+            "sort_kernels": sorts}
+
+
+def sort_kernels(prof) -> dict:
+    """The device kernels whose name holds "sort" (cub's radix sort
+    kernels, which ``torch.sort``, ``unique`` and ``randperm`` launch),
+    grouped by the stack of ops (innermost first, up to the outermost
+    three) that launched them."""
+    groups = {}
+    for e in prof.events():
+        ks = [k for k in getattr(e, "kernels", ())
+              if "sort" in k.name.lower()]
+        if not ks:
+            continue
+        stack, up = [], e
+        while up is not None:
+            stack.append(up.name)
+            up = up.cpu_parent
+        key = tuple(stack[:1] + stack[1:][-3:])
+        g = groups.setdefault(key, {"stack": list(key), "kernels": 0,
+                                    "ms": 0.0, "row_apply": False,
+                                    "randperm": False})
+        g["kernels"] += len(ks)
+        g["ms"] += sum(k.duration for k in ks) / 1e3
+        g["row_apply"] |= APPLY_RANGE in stack
+        g["randperm"] |= "aten::randperm" in stack
+    by_op = sorted(groups.values(), key=lambda g: -g["ms"])
+    return dict(kernels=sum(g["kernels"] for g in by_op),
+                ms=sum(g["ms"] for g in by_op),
+                in_row_apply=sum(g["kernels"] for g in by_op
+                                 if g["row_apply"]),
+                in_randperm=sum(g["kernels"] for g in by_op
+                                if g["randperm"]),
+                by_op=by_op)
 
 
 # The trainer's epoch method of each ITC stream.
@@ -987,6 +1161,9 @@ def phase_itc(dev, n=20_000, dim=75, batch=5000, epochs=10, cpu_rows=256):
                                 sum(r["seconds"] for r in recs
                                     if r.get("epoch") == epochs
                                     and r["stream"] in ITC_STREAMS) * 1e3)
+    check(busy.get("sort_kernels", {}).get("in_row_apply", 0) == 0,
+          "the optimizer step launched a sort: "
+          f"{busy.get('sort_kernels')}")
 
     numbers = dict(
         entities_per_kg=n, dim=dim, batch=batch, epochs=epochs,
@@ -1232,6 +1409,9 @@ def phase_ssl(dev, data, n=20_000, dim=75, batch=5000, epochs=10):
                                 sum(r["seconds"] for r in recs
                                     if r.get("epoch") == epochs
                                     and r["stream"] in phase1) * 1e3)
+    check(busy.get("sort_kernels", {}).get("in_row_apply", 0) == 0,
+          "the optimizer step launched a sort: "
+          f"{busy.get('sort_kernels')}")
     numbers = dict(
         entities_per_kg=n, dim=dim, batch=batch, epochs=epochs,
         shared_learning_epochs=epochs, predicates_s=predicates_s,
@@ -1966,8 +2146,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script needs one GPU",
               file=sys.stderr)
         return 2
-    if args and (len(args) != 2 or args[0] != "--k2-of"):
-        print("usage: chip_smoke.py [--k2-of DIR]", file=sys.stderr)
+    if args and (len(args) != 2 or args[0] not in ("--k1-of", "--k2-of")):
+        print("usage: chip_smoke.py [--k1-of DIR | --k2-of DIR]",
+              file=sys.stderr)
         return 2
     root = os.path.abspath(args[1]) if args else REPO
     if not os.path.isdir(os.path.join(root, "multike_tpu_torch")):
@@ -1987,6 +2168,12 @@ def main() -> int:
         f"TB/s, {peaks[1] / 1e12:.0f} TFLOP/s fp32")
 
     phase_build()
+    if args and args[0] == "--k1-of":
+        k1 = phase_k1_of(dev, peaks, root)
+        log(f"[done] K1 of {root} in {time.time() - t_start:.1f} s")
+        print(json.dumps({"k1_of": root, "steps": k1}), flush=True)
+        print(card, flush=True)
+        return 0
     if args:
         k2 = phase_rank(dev, peaks)
         log(f"[done] K2 of {root} in {time.time() - t_start:.1f} s")

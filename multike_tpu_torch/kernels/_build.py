@@ -31,8 +31,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 # name -> argtypes of each C entry point (all return int: a cudaError_t)
 _SIGNATURES = {
-    "fused_row_adagrad": [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
-                          ctypes.c_int, ctypes.c_float, ctypes.c_float, _P],
+    "row_adagrad": [_P, _P, _P, ctypes.c_longlong, _P, ctypes.c_int,
+                    ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_float, ctypes.c_float, _P, _P, _P, _P],
     "rank_count": [_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P],
     "rank_count_plan": [ctypes.c_int, ctypes.c_int, ctypes.c_int,

@@ -1,16 +1,25 @@
-"""Fused row-sparse Adagrad apply (K1): the CUDA kernel in
-``csrc/apply_kernel.cu`` and its plain PyTorch version.
+"""Row-sparse Adagrad apply (K1): the CUDA kernel in ``csrc/apply_kernel.cu``
+and its plain PyTorch version.
 
-Replaces multike_tpu/kernels/apply_kernel.py::fused_row_adagrad_pallas. For
-each row ``r = loc[k]`` inside the table: ``acc[r] += g^2`` then
-``param[r] -= lr * g * where(acc[r] > 0, rsqrt(acc[r] + eps), 0)`` with
-``g = gsum[k]``; slots outside the table are sentinels and dropped. ``loc``
-must hold each row at most once (``train/sparse_adagrad.row_apply``
-deduplicates). ``param`` and ``acc`` are updated in place.
+Replaces multike_tpu/kernels/apply_kernel.py::fused_row_adagrad_pallas with
+the sort and segment-sum that feed it in multike_tpu/train/sparse_adagrad.py
+(``row_apply(..., use_pallas=True)``). For every row ``r`` in
+``[row_offset, row_offset + rows)`` that ``ids`` touches, with ``g`` the sum
+of its occurrences' rows of ``g_rows``: ``acc[r] += g^2`` then
+``param[r] -= lr * where(acc[r] > 0, rsqrt(acc[r] + eps), 0) * g``. Ids
+outside the range do nothing. ``param`` and ``acc`` are updated in place.
 
-:func:`fused_row_adagrad` follows its tensors' device: on the CPU it runs
-the plain version, on a CUDA device it launches the kernel (or raises).
-``launches`` counts the kernel launches.
+:func:`row_adagrad` follows its tensors' device: on the CPU it runs the
+plain version (:func:`dedup_rows`, a stable sort and a sequential
+``index_add_``, then :func:`fused_row_adagrad_plain`); on a CUDA device it
+launches the kernel (or raises), which sums each row's occurrences in the
+same order and so gives the same bits. ``launches`` counts the kernel's
+launches, one per call.
+
+The kernel keeps int32 scratch per (device, stream), grown to the largest
+table and step seen: two words for each table row, of which the counters
+are zero between calls (the kernel restores them), and six for each id.
+Calls on one stream are ordered, so they share it.
 """
 from __future__ import annotations
 
@@ -19,11 +28,42 @@ import torch
 from multike_tpu_torch.kernels import _build
 
 launches = 0
+_COUNTERS = 8            # >= kNumCounters in csrc/apply_kernel.cu
+_scratch = {}            # (device index, stream) -> (counts, row_start, work)
+
+
+def dedup_rows(ids: torch.Tensor, g_rows: torch.Tensor, rows: int,
+               row_offset: int = 0, total_rows: int | None = None):
+    """(loc int32 (N,), gsum (N, d)) for :func:`fused_row_adagrad_plain`:
+    one slot per unique id with its summed gradient, in sorted order; the
+    remaining slots and ids outside ``[row_offset, row_offset + rows)`` get
+    distinct sentinels ``>= rows``.
+
+    Row-sharded tables: ``rows`` is the local shard's row count,
+    ``row_offset`` its first global row and ``total_rows`` the global count;
+    ``ids`` stay global."""
+    n = ids.shape[0]
+    total = total_rows or rows
+    sid, order = torch.sort(ids, stable=True)
+    sg = g_rows[order]
+    is_start = torch.ones_like(sid, dtype=torch.bool)
+    is_start[1:] = sid[1:] != sid[:-1]
+    seg = torch.cumsum(is_start, dim=0) - 1                    # (N,) in [0, U)
+    gsum = torch.zeros_like(g_rows).index_add_(0, seg, sg)
+    arange = torch.arange(n, device=ids.device, dtype=sid.dtype)
+    rep = total + arange
+    rep[seg] = sid
+    loc = rep - row_offset
+    valid = (loc >= 0) & (loc < rows)
+    loc = torch.where(valid, loc, rows + arange)
+    return loc.to(torch.int32), gsum
 
 
 def fused_row_adagrad_plain(param, acc, loc, gsum, lr: float,
                             eps: float = 1e-7):
-    """Plain PyTorch version of the kernel (same operation order)."""
+    """The update on deduplicated rows ``loc`` (each at most once; slots
+    outside the table are sentinels and dropped) with summed gradients
+    ``gsum``, in place."""
     valid = (loc >= 0) & (loc < param.shape[0])
     rows = loc[valid].long()
     g = gsum[valid]
@@ -34,42 +74,85 @@ def fused_row_adagrad_plain(param, acc, loc, gsum, lr: float,
     return param, acc
 
 
-def _check(param, acc, loc, gsum):
+def row_adagrad_plain(param, acc, ids, g_rows, lr: float, eps: float = 1e-7,
+                      row_offset: int = 0):
+    """Plain PyTorch version of the kernel: :func:`dedup_rows`, then
+    :func:`fused_row_adagrad_plain`."""
+    rows = param.shape[0]
+    loc, gsum = dedup_rows(ids, g_rows, rows, row_offset, row_offset + rows)
+    return fused_row_adagrad_plain(param, acc, loc, gsum.contiguous(), lr,
+                                   eps)
+
+
+def _check(param, acc, ids, g_rows):
     if param.dtype != torch.float32 or acc.dtype != torch.float32 \
-            or gsum.dtype != torch.float32:
-        raise TypeError("param, acc and gsum must be float32")
-    if loc.dtype != torch.int32:
-        raise TypeError(f"loc must be int32, got {loc.dtype}")
+            or g_rows.dtype != torch.float32:
+        raise TypeError("param, acc and g_rows must be float32")
+    if ids.dtype != torch.int64:
+        raise TypeError(f"ids must be int64, got {ids.dtype}")
     if param.dim() != 2 or param.shape != acc.shape:
         raise ValueError(f"param {tuple(param.shape)} and acc "
                          f"{tuple(acc.shape)} must be one (rows, d) shape")
-    if loc.dim() != 1 or gsum.shape != (loc.shape[0], param.shape[1]):
-        raise ValueError(f"loc {tuple(loc.shape)} / gsum "
-                         f"{tuple(gsum.shape)} do not match (n,) / (n, d)")
-    for name, t in (("param", param), ("acc", acc), ("loc", loc),
-                    ("gsum", gsum)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    if ids.dim() != 1 or g_rows.shape != (ids.shape[0], param.shape[1]):
+        raise ValueError(f"ids {tuple(ids.shape)} / g_rows "
+                         f"{tuple(g_rows.shape)} do not match (n,) / (n, d)")
+    for name, t in (("acc", acc), ("ids", ids), ("g_rows", g_rows)):
         if t.device != param.device:
             raise ValueError(f"{name} is on {t.device}, param on "
                              f"{param.device}")
 
 
-def fused_row_adagrad(param, acc, loc, gsum, lr: float, eps: float = 1e-7):
-    """One fused Adagrad step on rows ``loc`` of ``param``/``acc``, in
-    place. Returns ``(param, acc)``."""
+def _scratch_for(device, stream: int, rows: int, n: int):
+    """The kernel's scratch on ``stream`` for ``rows`` rows and ``n`` ids."""
+    key = (device.index, stream)
+    have = _scratch.get(key)
+    if have is None or have[1].shape[0] < rows:
+        have = (torch.zeros(_COUNTERS + rows, dtype=torch.int32,
+                            device=device),
+                torch.empty(rows, dtype=torch.int32, device=device),
+                have[2] if have else torch.empty(0, dtype=torch.int32,
+                                                 device=device))
+    if have[2].shape[0] < 6 * n:
+        have = have[:2] + (torch.empty(6 * n, dtype=torch.int32,
+                                       device=device),)
+    _scratch[key] = have
+    return have
+
+
+def row_adagrad(param, acc, ids, g_rows, lr: float, eps: float = 1e-7,
+                row_offset: int = 0):
+    """One Adagrad step on the rows of ``param``/``acc`` (a table of rows
+    ``[row_offset, row_offset + rows)``) that ``ids`` touches, with the
+    per-occurrence gradients ``g_rows``, in place. Returns ``(param,
+    acc)``."""
     global launches
+    _check(param, acc, ids, g_rows)
     if param.device.type == "cpu":
-        return fused_row_adagrad_plain(param, acc, loc, gsum, lr, eps)
+        return row_adagrad_plain(param, acc, ids, g_rows, lr, eps, row_offset)
     if param.device.type != "cuda":
         raise ValueError(f"unsupported device {param.device}")
-    _check(param, acc, loc, gsum)
+    for name, t in (("param", param), ("acc", acc)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous: it is updated "
+                             "in place")
+    g_rows = g_rows.contiguous()     # a no-op for autograd's rows
+    n, (rows, d) = ids.shape[0], param.shape
+    if n >= 2 ** 31 or rows >= 2 ** 31:
+        raise ValueError(f"{n} ids into {rows} rows: the kernel counts in "
+                         "int32")
+    if n == 0 or rows == 0 or d == 0:
+        return param, acc
     lib = _build.load()
     with torch.cuda.device(param.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.fused_row_adagrad(
-            param.data_ptr(), acc.data_ptr(), loc.data_ptr(), gsum.data_ptr(),
-            loc.shape[0], param.shape[0], param.shape[1], lr, eps, stream)
-    _build.check(err, "fused_row_adagrad")
+        counts, row_start, work = _scratch_for(param.device, stream, rows, n)
+        err = lib.row_adagrad(
+            param.data_ptr(), acc.data_ptr(), ids.data_ptr(), ids.stride(0),
+            g_rows.data_ptr(), n, row_offset, rows, d, lr, eps,
+            counts.data_ptr(), row_start.data_ptr(), work.data_ptr(),
+            stream)
+    if err != 0:                   # the counters may no longer be zero
+        _scratch.pop((param.device.index, stream), None)
+    _build.check(err, "row_adagrad")
     launches += 1
     return param, acc

@@ -110,8 +110,8 @@ def test_dense_stream_step_matches_jax(name, monkeypatch):
 
     def no_k1(*a, **k):
         raise AssertionError("K1 ran for a non-Adagrad optimizer")
-    monkeypatch.setattr(apply_kernel, "fused_row_adagrad", no_k1)
-    monkeypatch.setattr(tst.sparse_adagrad, "fused_row_adagrad", no_k1)
+    monkeypatch.setattr(apply_kernel, "row_adagrad", no_k1)
+    monkeypatch.setattr(tst.sparse_adagrad, "row_adagrad", no_k1)
 
     rng = np.random.RandomState(1)
     np_params = {k: np.asarray(v) for k, v in

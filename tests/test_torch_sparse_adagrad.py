@@ -1,6 +1,7 @@
-"""The PyTorch port's row-sparse Adagrad and the plain version of its fused
-apply kernel (K1) against the JAX package: ``sparse_adagrad.row_apply`` and
-``fused_row_adagrad_pallas`` in interpret mode.
+"""The PyTorch port's row-sparse Adagrad and K1's wrapper ``row_adagrad`` on
+the CPU (its plain version) against the JAX package: ``row_apply`` with and
+without its Pallas kernel (in interpret mode), and the plain update
+``fused_row_adagrad_plain`` against ``fused_row_adagrad_pallas``.
 
 Tolerance rtol 2e-6 / atol 1e-7 (one rsqrt and a few float32 products per
 element); rows the step does not touch stay bit-identical and sentinel slots
@@ -92,7 +93,7 @@ def test_apply_kernel_plain_matches_pallas(seed, E, d, N):
 def test_port_dedup_matches_jax_dedup():
     param, acc, ids, g_rows = _state(6, 30, 4, 40)
     loc, gsum = _jax_dedup(ids, g_rows, 30)
-    tloc, tgsum = tsa.dedup_rows(torch.tensor(ids).long(),
+    tloc, tgsum = tk.dedup_rows(torch.tensor(ids).long(),
                                  torch.tensor(g_rows), 30)
     assert tloc.dtype == torch.int32
     u = len(np.unique(ids))
@@ -107,15 +108,91 @@ def test_apply_kernel_sentinels_dropped_untouched_identical():
     param, acc, _, _ = _state(7, E, d, 1)
     loc = np.array([2, 5, 17, E + 0, E + 1], np.int32)
     gsum = np.random.RandomState(7).randn(5, d).astype(np.float32)
-    launches = tk.launches
-    got_p, got_a = tk.fused_row_adagrad(torch.tensor(param), torch.tensor(acc),
-                                        torch.tensor(loc), torch.tensor(gsum),
-                                        0.05)
-    assert tk.launches == launches          # the CPU runs the plain version
+    got_p, got_a = tk.fused_row_adagrad_plain(
+        torch.tensor(param), torch.tensor(acc), torch.tensor(loc),
+        torch.tensor(gsum), 0.05)
     untouched = sorted(set(range(E)) - {2, 5, 17})
     np.testing.assert_array_equal(got_p.numpy()[untouched], param[untouched])
     np.testing.assert_array_equal(got_a.numpy()[untouched], acc[untouched])
     assert not np.array_equal(got_p.numpy()[[2, 5, 17]], param[[2, 5, 17]])
+
+
+def _ids_case(name):
+    """(E, d, ids, row_offset, total_rows) of one new case."""
+    rng = np.random.RandomState(20 + ID_CASES.index(name))
+    if name == "hub40":                 # one row 40 times among others
+        ids = np.r_[rng.randint(0, 64, 100), np.full(40, 7)]
+        return 64, 8, rng.permutation(ids), 0, None
+    if name == "hub2000":
+        ids = np.r_[np.full(2000, 5), np.arange(64)]
+        return 64, 8, rng.permutation(ids), 0, None
+    if name == "offset":                # a shard [10, 26) of 40 rows
+        return 16, 6, rng.randint(0, 40, 60), 10, 40
+    if name == "out_of_range":          # no id in the shard
+        ids = np.r_[rng.randint(0, 10, 20), rng.randint(26, 50, 20)]
+        return 16, 6, ids, 10, 50
+    d = {"d1": 1, "d75": 75, "d384": 384}[name]
+    return 64, d, rng.randint(0, 64, 150), 0, None
+
+
+ID_CASES = ("hub40", "hub2000", "offset", "out_of_range", "d1", "d75",
+            "d384")
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+@pytest.mark.parametrize("case", ID_CASES)
+def test_row_adagrad_matches_jax_row_apply(case, use_pallas):
+    """K1's wrapper on the CPU against JAX ``row_apply``, with its Pallas
+    kernel interpreted and without it: hub rows, a row shard with ids
+    below and above it or none in it, and d = 1, 75, 384."""
+    E, d, ids, off, total = _ids_case(case)
+    rng = np.random.RandomState(len(ids))
+    param = rng.randn(E, d).astype(np.float32)
+    acc = (0.1 + rng.rand(E, d)).astype(np.float32)
+    g_rows = rng.randn(len(ids), d).astype(np.float32)
+    want_p, want_a = jsa.row_apply(
+        jnp.asarray(param), jnp.asarray(acc), jnp.asarray(ids),
+        jnp.asarray(g_rows), 0.1, row_offset=off, total_rows=total,
+        use_pallas=use_pallas)
+    launches = tk.launches
+    got_p, got_a = tk.row_adagrad(torch.tensor(param), torch.tensor(acc),
+                                  torch.tensor(ids).long(),
+                                  torch.tensor(g_rows), 0.1, row_offset=off)
+    assert tk.launches == launches          # the CPU runs the plain version
+    np.testing.assert_allclose(got_p.numpy(), np.asarray(want_p), **TOL)
+    np.testing.assert_allclose(got_a.numpy(), np.asarray(want_a), **TOL)
+    local = ids - off
+    untouched = sorted(set(range(E)) - set(local.tolist()))
+    np.testing.assert_array_equal(got_p.numpy()[untouched], param[untouched])
+    np.testing.assert_array_equal(got_a.numpy()[untouched], acc[untouched])
+    if case == "out_of_range":
+        assert len(untouched) == E
+
+
+def test_row_adagrad_empty_step_leaves_tables():
+    """N = 0: JAX ``row_apply`` refuses an empty step (its segment-sum
+    cannot broadcast zero rows); the port's leaves both tables as they
+    are."""
+    param, acc, _, _ = _state(12, 20, 6, 1)
+    p, a = torch.tensor(param), torch.tensor(acc)
+    got_p, got_a = tk.row_adagrad(p, a, torch.zeros(0, dtype=torch.int64),
+                                  torch.zeros(0, 6), 0.1)
+    assert got_p is p and got_a is a
+    np.testing.assert_array_equal(p.numpy(), param)
+    np.testing.assert_array_equal(a.numpy(), acc)
+
+
+def test_row_apply_is_row_adagrad_bitwise():
+    """``sparse_adagrad.row_apply`` is K1's wrapper, bit for bit, and so is
+    the plain version it runs on the CPU."""
+    param, acc, ids, g_rows = _state(13, 50, 75, 400)
+    outs = []
+    for fn in (tsa.row_apply, tk.row_adagrad, tk.row_adagrad_plain):
+        p, a = torch.tensor(param), torch.tensor(acc)
+        fn(p, a, torch.tensor(ids).long(), torch.tensor(g_rows), 0.1)
+        outs.append((p, a))
+    for p, a in outs[1:]:
+        assert torch.equal(p, outs[0][0]) and torch.equal(a, outs[0][1])
 
 
 def test_dense_apply_matches_jax():
@@ -143,17 +220,25 @@ def test_dense_apply_matches_jax():
 
 
 def test_apply_kernel_wrapper_checks():
+    """The dtypes, shapes and devices ``row_adagrad`` refuses."""
     p = torch.zeros(4, 3)
     a = torch.zeros(4, 3)
+    ids = torch.zeros(2, dtype=torch.int64)
     g = torch.zeros(2, 3)
-    with pytest.raises(TypeError):
-        tk._check(p, a, torch.zeros(2, dtype=torch.int64), g)
-    with pytest.raises(ValueError):
-        tk._check(p, torch.zeros(5, 3), torch.zeros(2, dtype=torch.int32), g)
-    with pytest.raises(ValueError):
-        tk._check(p, a, torch.zeros(2, dtype=torch.int32), torch.zeros(3, 3))
-    with pytest.raises(ValueError):
-        tk._check(p, a, torch.zeros(2, dtype=torch.int32),
-                  torch.zeros(3, 2).T)
-    with pytest.raises(TypeError):
-        tk._check(p.double(), a, torch.zeros(2, dtype=torch.int32), g)
+    with pytest.raises(TypeError):                      # ids int32
+        tk.row_adagrad(p, a, ids.int(), g, 0.1)
+    with pytest.raises(TypeError):                      # float64 param
+        tk.row_adagrad(p.double(), a, ids, g, 0.1)
+    with pytest.raises(TypeError):                      # float64 g_rows
+        tk.row_adagrad(p, a, ids, g.double(), 0.1)
+    with pytest.raises(ValueError):                     # acc of another shape
+        tk.row_adagrad(p, torch.zeros(5, 3), ids, g, 0.1)
+    with pytest.raises(ValueError):                     # g_rows not (n, d)
+        tk.row_adagrad(p, a, ids, torch.zeros(3, 3), 0.1)
+    with pytest.raises(ValueError):                     # ids not (n,)
+        tk.row_adagrad(p, a, ids[:, None], g, 0.1)
+    with pytest.raises(ValueError):                     # ids on another device
+        tk.row_adagrad(p, a, ids.to("meta"), g, 0.1)
+    with pytest.raises(ValueError):                     # no kernel for meta
+        tk.row_adagrad(p.to("meta"), a.to("meta"), ids.to("meta"),
+                       g.to("meta"), 0.1)
