@@ -13,8 +13,10 @@
 
 Phases, each of which must pass or the script exits non-zero:
 
-  1. build the CUDA kernels from ``multike_tpu_torch/csrc`` (timed), and
-     report each one's registers and spills (a spill fails the run);
+  1. build the host helpers (``csrc/host_helpers.cpp``, with the host C++
+     compiler) and the CUDA kernels from ``multike_tpu_torch/csrc``
+     (each timed), and report each kernel's registers and spills (a spill
+     fails the run);
   2. K1, the whole row-sparse Adagrad apply (``row_adagrad``: dedup and
      update, no sort), at the per-step shape of bench.py (200K x 75 table,
      the ids of one batch-80000 chunk_shared step), at the same ids in a
@@ -45,7 +47,10 @@ Phases, each of which must pass or the script exits non-zero:
      the literal encoder at full width, predicate alignment,
      ``MultiKE_ITC.run``) on the 20K pair, d=75, row-sparse on, cut to 10
      epochs with the neighbor refresh at epoch 5 and one evaluation at
-     epoch 10. Every stream's loss must be finite, K1 must launch in each of
+     epoch 10. The host helpers must be the package's own library, built
+     under its ``build/``, and give bitwise the plain Python Levenshtein
+     matrices of the pair's predicate names and the plain ``.vec`` read.
+     Every stream's loss must be finite, K1 must launch in each of
      the 7 streams and K2 once per evaluation, truncated epochs must follow
      the refresh, rv and final valid MRR must rise, the embeddings must be
      saved, and from the trained state one attr_view and one common_space
@@ -224,10 +229,17 @@ def bench_triples(rng, n_triples, ent_lo, ent_hi, n_rel, rel_lo):
 # ---------------------------------------------------------------------------
 
 def phase_build():
-    """Build the kernels and report each one's registers and spills from
-    nvcc's ``-Xptxas -v`` log; a kernel that spills fails the run."""
+    """Build the host helpers, then the kernels, and report each kernel's
+    registers and spills from nvcc's ``-Xptxas -v`` log; a kernel that
+    spills fails the run."""
     from multike_tpu_torch.kernels import _build
 
+    t0 = time.time()
+    host = _build.build_host()
+    _build.load_host()
+    secs = time.time() - t0
+    log(f"[build] host helpers built and loaded in {secs:.2f} s: "
+        f"{os.path.relpath(host, REPO)}")
     t0 = time.time()
     path = _build.build()
     _build.load()
@@ -1097,6 +1109,7 @@ def phase_itc(dev, n=20_000, dim=75, batch=5000, epochs=10, cpu_rows=256):
     log(f"[itc] DataModel {datamodel_s:.2f} s ({len(data.literal_list)} "
         f"literals; parts {data.seconds}), predicate alignment "
         f"{predicates_s:.2f} s")
+    host = check_host_helpers(pam, cfg)
 
     model = MultiKE_ITC(cfg, data, pam, verbose=True, device=dev)
     before = {v: views.valid(model, v) for v in ("rv", "final")}
@@ -1169,8 +1182,8 @@ def phase_itc(dev, n=20_000, dim=75, batch=5000, epochs=10, cpu_rows=256):
         entities_per_kg=n, dim=dim, batch=batch, epochs=epochs,
         literals=len(data.literal_list), datamodel_s=datamodel_s,
         datamodel_parts_s=data.seconds,
-        predicates_s=predicates_s, run_s=run_s, streams=streams_s,
-        neighbor_refresh_s=[r["seconds"] for r in refresh],
+        predicates_s=predicates_s, host_helpers=host, run_s=run_s,
+        streams=streams_s, neighbor_refresh_s=[r["seconds"] for r in refresh],
         truncated_epochs=sum(r["truncated"] for r in rel),
         evals={k: {"calls": r["calls"], "k2_launches": r["rank_count"],
                    "ms": [1e3 * x for x in r["seconds"]]}
@@ -1179,6 +1192,56 @@ def phase_itc(dev, n=20_000, dim=75, batch=5000, epochs=10, cpu_rows=256):
         launches=launches, card_vs_cpu=cpu, profiled_epoch=busy)
     log(f"[itc] {json.dumps(numbers)}")
     return launches, numbers, data
+
+
+def check_host_helpers(pam, cfg) -> dict:
+    """The host helpers that prepared phase 6: the library loaded is the
+    package's own, built under its ``build/``, no other build of the
+    helpers (such as the JAX package's) is mapped, and on phase 6's own
+    predicate names and ``.vec`` file both helpers are bitwise their plain
+    Python versions."""
+    import numpy as np
+
+    import multike_tpu_torch
+    from multike_tpu_torch.kernels import _build
+    from multike_tpu_torch.utils import native
+
+    lib = _build.load_host()._name
+    build = os.path.join(os.path.dirname(multike_tpu_torch.__file__),
+                         "build") + os.sep
+    check(lib.startswith(build), f"host helpers loaded from {lib}")
+    with open("/proc/self/maps") as f:
+        stray = {p for p in (ln.split()[-1] for ln in f)
+                 if os.path.basename(p).startswith("libmultike")
+                 and not p.startswith(build)}
+    check(not stray, f"libraries mapped from outside {build}: {stray}")
+    out = {"library": os.path.relpath(lib, REPO)}
+    for kind in ("relation", "attribute"):
+        names1 = list(getattr(pam, f"{kind}_name_dict1").values())
+        names2 = list(getattr(pam, f"{kind}_name_dict2").values())
+        t0 = time.time()
+        got = native.levenshtein_ratio_matrix(names1, names2)
+        built_s = time.time() - t0
+        t0 = time.time()
+        want = native.lev_ratio_matrix_py(names1, names2)
+        py_s = time.time() - t0
+        check(got.shape == (len(names1), len(names2))
+              and np.array_equal(got, want),
+              f"the {kind} Levenshtein matrix differs from the plain one")
+        out[f"{kind}_levenshtein"] = {"shape": list(got.shape),
+                                      "built_s": built_s, "python_s": py_s}
+    t0 = time.time()
+    got = native.read_word2vec(cfg.word2vec_path, cfg.word2vec_dim)
+    built_s = time.time() - t0
+    t0 = time.time()
+    want = native.read_word2vec_py(cfg.word2vec_path, cfg.word2vec_dim)
+    py_s = time.time() - t0
+    check(got and list(got) == list(want)
+          and all(np.array_equal(got[w], want[w]) for w in want),
+          "the .vec reader differs from the plain one")
+    out["vec"] = {"words": len(got), "built_s": built_s, "python_s": py_s}
+    log(f"[itc] host helpers: {json.dumps(out)}")
+    return out
 
 
 def profile_driver_epoch(model, stream_methods, epoch: int, epoch_ms: float):

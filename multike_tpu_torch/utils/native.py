@@ -7,22 +7,21 @@ multike_tpu/utils/native.py).
   * ``read_word2vec(path, dim)``: a fastText-style ``.vec`` file as
     ``{word: float32 vector}``.
 
-The last two use ``native/libmultike_native.so`` through ctypes when that
-library has been built (``make -C native``), and a pure-Python version
-otherwise; both give equal results.
+The last two always run the package's host helpers
+(``csrc/host_helpers.cpp``, built at first use by
+``kernels/_build.load_host``); a failed build raises, and nothing falls
+back to Python. ``lev_ratio_matrix_py`` and ``read_word2vec_py`` are their
+plain versions, bitwise equal, for the tests.
 """
 from __future__ import annotations
 
 import ctypes
-import functools
 import os
 from typing import Dict, List, Sequence
 
 import numpy as np
 
-_NATIVE_LIB = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
-        __file__)))), "native", "libmultike_native.so")
+from multike_tpu_torch.kernels import _build
 
 
 def tsv_read_triples(path: str) -> List[List[str]]:
@@ -32,31 +31,6 @@ def tsv_read_triples(path: str) -> List[List[str]]:
         for line in f:
             rows.append(line.strip("\n").split("\t"))
     return rows
-
-
-@functools.lru_cache(maxsize=None)
-def native_lib():
-    """The native helper library, or None when it is not built."""
-    if not os.path.exists(_NATIVE_LIB):
-        return None
-    try:
-        lib = ctypes.CDLL(_NATIVE_LIB)
-    except OSError:
-        return None
-    lib.lev_ratio_matrix.restype = None
-    lib.lev_ratio_matrix.argtypes = [
-        ctypes.POINTER(ctypes.c_char_p), ctypes.c_int,
-        ctypes.POINTER(ctypes.c_char_p), ctypes.c_int,
-        ctypes.POINTER(ctypes.c_double), ctypes.c_int]
-    lib.vec_scan.restype = ctypes.c_int
-    lib.vec_scan.argtypes = [ctypes.c_char_p, ctypes.c_int,
-                             ctypes.POINTER(ctypes.c_longlong),
-                             ctypes.POINTER(ctypes.c_longlong)]
-    lib.vec_parse.restype = ctypes.c_int
-    lib.vec_parse.argtypes = [ctypes.c_char_p, ctypes.c_int,
-                              ctypes.POINTER(ctypes.c_float), ctypes.c_char_p,
-                              ctypes.c_longlong, ctypes.c_longlong]
-    return lib
 
 
 # ---------------------------------------------------------------------------
@@ -94,10 +68,10 @@ def levenshtein_ratio_matrix(names1: Sequence[str],
                              names2: Sequence[str]) -> np.ndarray:
     """(n1, n2) float64 matrix of Levenshtein ratios."""
     n1, n2 = len(names1), len(names2)
-    lib = native_lib()
-    if lib is None or n1 == 0 or n2 == 0:
-        return lev_ratio_matrix_py(names1, names2)
     out = np.zeros((n1, n2), dtype=np.float64)
+    if n1 == 0 or n2 == 0:
+        return out
+    lib = _build.load_host()
     arr1 = (ctypes.c_char_p * n1)(*[s.encode("utf-8") for s in names1])
     arr2 = (ctypes.c_char_p * n2)(*[s.encode("utf-8") for s in names2])
     lib.lev_ratio_matrix(arr1, n1, arr2, n2,
@@ -125,33 +99,42 @@ def read_word2vec_py(file_path: str,
     return word2vec
 
 
-def _read_word2vec_native(lib, file_path: str, vector_dimension: int):
-    n, wb = ctypes.c_longlong(), ctypes.c_longlong()
-    path_b = file_path.encode("utf-8")
-    if lib.vec_scan(path_b, vector_dimension, ctypes.byref(n),
-                    ctypes.byref(wb)) != 0:
-        return None
-    if n.value == 0:
-        return {}
-    mat = np.empty((n.value, vector_dimension), np.float32)
-    words_buf = ctypes.create_string_buffer(wb.value)
-    if lib.vec_parse(path_b, vector_dimension,
-                     mat.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-                     words_buf, n.value, wb.value) != 0:
-        return None
-    words = bytes(words_buf.raw[:wb.value]).decode("utf-8").split("\n")[:-1]
-    if len(words) != n.value:
-        return None
-    return {w: mat[i] for i, w in enumerate(words)}
+def _oserror(path: str) -> OSError:
+    err = ctypes.get_errno()
+    return OSError(err, os.strerror(err), path)  # FileNotFoundError etc.
 
 
 def read_word2vec(file_path: str,
                   vector_dimension: int = 300) -> Dict[str, np.ndarray]:
-    """``{word: float32 vector}`` of a ``.vec`` file (see
-    :func:`read_word2vec_py` for the rules)."""
-    lib = native_lib()
-    if lib is not None:
-        out = _read_word2vec_native(lib, file_path, vector_dimension)
-        if out is not None:
-            return out
-    return read_word2vec_py(file_path, vector_dimension)
+    """``{word: float32 vector}`` of a ``.vec`` file: a line is a word and
+    exactly ``vector_dimension`` floats, later duplicates win, the header
+    and malformed lines are skipped. Equal to :func:`read_word2vec_py`
+    where fields are separated by single spaces; where a line has runs of
+    spaces (a trailing one included) it reads the floats between them, as
+    the JAX package's native reader does, and the Python version skips the
+    line. A file that cannot be opened raises its ``OSError``
+    (``FileNotFoundError`` for a missing one); a file that changes between
+    the two passes raises ``RuntimeError``."""
+    lib = _build.load_host()
+    n, wb = ctypes.c_longlong(), ctypes.c_longlong()
+    path_b = os.fsencode(file_path)
+    if lib.vec_scan(path_b, vector_dimension, ctypes.byref(n),
+                    ctypes.byref(wb)) != 0:
+        raise _oserror(file_path)
+    if n.value == 0:
+        return {}
+    mat = np.empty((n.value, vector_dimension), np.float32)
+    words_buf = ctypes.create_string_buffer(wb.value)
+    rc = lib.vec_parse(path_b, vector_dimension,
+                       mat.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+                       words_buf, n.value, wb.value)
+    if rc == 1:
+        raise _oserror(file_path)
+    if rc != 0:
+        raise RuntimeError(f"{file_path} changed while it was read "
+                           f"(vec_parse returned {rc})")
+    words = words_buf.raw[:wb.value].decode("utf-8").split("\n")[:-1]
+    if len(words) != n.value:
+        raise RuntimeError(f"{file_path}: {len(words)} words parsed, "
+                           f"{n.value} lines scanned")
+    return {w: mat[i] for i, w in enumerate(words)}

@@ -63,7 +63,7 @@ def test_import_loads_no_jax():
 def _sources():
     for root, _, names in os.walk(PKG):
         for n in names:
-            if n.endswith((".py", ".cu", ".cuh", ".h")):
+            if n.endswith((".py", ".cu", ".cuh", ".h", ".cpp")):
                 yield os.path.join(root, n)
     yield os.path.join(REPO, "chip_smoke.py")
 
