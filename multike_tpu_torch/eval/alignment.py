@@ -27,6 +27,7 @@ from multike_tpu_torch.eval.similarity import csls_penalties_blockwise
 from multike_tpu_torch.kernels.rank_kernel import plain_row_block, rank_count
 from multike_tpu_torch.params import l2_normalize
 from multike_tpu_torch.utils.device import resolve_device
+from multike_tpu_torch.utils.profiling import span
 
 
 def _normalize_np(x: np.ndarray) -> np.ndarray:
@@ -61,51 +62,53 @@ def rank_and_align(embed1, embed2, normalize: bool = True, csls_k: int = 0,
     the ring over the mesh's dp ranks (eval/ring.py), both sides split over
     them and normalized on the host; ``matmul_dtype`` is not applied there,
     as in the JAX package."""
-    if embed2.shape[0] < embed1.shape[0]:
-        raise ValueError("gold column must exist for every row")
-    if mesh is not None:
-        from multike_tpu_torch.eval.ring import ring_rank_and_align
+    with span("eval.rank"):
+        if embed2.shape[0] < embed1.shape[0]:
+            raise ValueError("gold column must exist for every row")
+        if mesh is not None:
+            from multike_tpu_torch.eval.ring import ring_rank_and_align
 
-        return ring_rank_and_align(mesh.dp_group, _to_numpy(embed1),
-                                   _to_numpy(embed2), normalize=normalize,
-                                   csls_k=csls_k, device=mesh.device)
-    if torch.is_tensor(embed1) and torch.is_tensor(embed2):
-        dev = embed1.device if device is None else resolve_device(device)
-        d1 = embed1.to(dev, torch.float32)
-        d2 = embed2.to(dev, torch.float32)
-        if normalize:
-            d1 = l2_normalize(d1, axis=1)
-            d2 = l2_normalize(d2, axis=1)
-    else:
-        dev = resolve_device(device)
-        e1 = np.asarray(_to_numpy(embed1), np.float32)
-        e2 = np.asarray(_to_numpy(embed2), np.float32)
-        if normalize:
-            e1 = _normalize_np(e1)
-            e2 = _normalize_np(e2)
-        d1 = torch.as_tensor(e1, dtype=torch.float32, device=dev)
-        d2 = torch.as_tensor(e2, dtype=torch.float32, device=dev)
-    n1 = d1.shape[0]
-    if matmul_dtype != torch.float32:
-        h1, h2 = d1.to(matmul_dtype), d2.to(matmul_dtype)
-        gold = torch.sum(h1 * h2[:n1], dim=1).float()
-        d1, d2 = h1.float(), h2.float()
-    else:
-        gold = torch.sum(d1 * d2[:n1], dim=1)
-    d1, d2 = d1.contiguous(), d2.contiguous()
+            return ring_rank_and_align(mesh.dp_group, _to_numpy(embed1),
+                                       _to_numpy(embed2), normalize=normalize,
+                                       csls_k=csls_k, device=mesh.device)
+        if torch.is_tensor(embed1) and torch.is_tensor(embed2):
+            dev = embed1.device if device is None else resolve_device(device)
+            d1 = embed1.to(dev, torch.float32)
+            d2 = embed2.to(dev, torch.float32)
+            if normalize:
+                d1 = l2_normalize(d1, axis=1)
+                d2 = l2_normalize(d2, axis=1)
+        else:
+            dev = resolve_device(device)
+            e1 = np.asarray(_to_numpy(embed1), np.float32)
+            e2 = np.asarray(_to_numpy(embed2), np.float32)
+            if normalize:
+                e1 = _normalize_np(e1)
+                e2 = _normalize_np(e2)
+            d1 = torch.as_tensor(e1, dtype=torch.float32, device=dev)
+            d2 = torch.as_tensor(e2, dtype=torch.float32, device=dev)
+        n1 = d1.shape[0]
+        if matmul_dtype != torch.float32:
+            h1, h2 = d1.to(matmul_dtype), d2.to(matmul_dtype)
+            gold = torch.sum(h1 * h2[:n1], dim=1).float()
+            d1, d2 = h1.float(), h2.float()
+        else:
+            gold = torch.sum(d1 * d2[:n1], dim=1)
+        d1, d2 = d1.contiguous(), d2.contiguous()
 
-    r2 = None
-    if csls_k > 0:
-        _, r2 = csls_penalties_blockwise(d1, d2, csls_k, col_block=col_block)
-        # adjusted gold: 2*s_ii - r2_i (r1_i is constant within the row)
-        gold = 2.0 * gold - r2[:n1]
-        r2 = r2.contiguous()
-    gold_idx = torch.arange(n1, dtype=torch.int32, device=dev)
-    rb = row_block or plain_row_block(n1, d2.shape[0])
-    cnt, bidx, _ = rank_count(d1, gold.contiguous(), gold_idx, d2, r2,
-                              row_block=min(rb, max(n1, 1)))
-    return (cnt.cpu().numpy().astype(np.int64),
-            bidx.cpu().numpy().astype(np.int64))
+        r2 = None
+        if csls_k > 0:
+            _, r2 = csls_penalties_blockwise(d1, d2, csls_k,
+                                             col_block=col_block)
+            # adjusted gold: 2*s_ii - r2_i (r1_i is constant within the row)
+            gold = 2.0 * gold - r2[:n1]
+            r2 = r2.contiguous()
+        gold_idx = torch.arange(n1, dtype=torch.int32, device=dev)
+        rb = row_block or plain_row_block(n1, d2.shape[0])
+        cnt, bidx, _ = rank_count(d1, gold.contiguous(), gold_idx, d2, r2,
+                                  row_block=min(rb, max(n1, 1)))
+        return (cnt.cpu().numpy().astype(np.int64),
+                bidx.cpu().numpy().astype(np.int64))
 
 
 def greedy_alignment(embed1, embed2, top_k: Sequence[int], nums_threads: int,

@@ -24,6 +24,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from multike_tpu_torch.utils.profiling import span
+
 
 class NeighborState(NamedTuple):
     """Truncated-sampling candidates: ``nbr[e, :cnt[e]]`` holds entity e's
@@ -99,15 +101,17 @@ def build_triple_filter(triples: np.ndarray, log2m: int = 25,
                         device=None) -> TripleFilter:
     """The filter of ``triples`` ((n, 3) int array), built on the host and
     uploaded to ``device``. m = 2**log2m bits (4 MB at 25)."""
-    bits = np.zeros((1 << log2m) // 32, np.uint32)
-    if len(triples):
-        triples = np.asarray(triples)
-        word, b1, b2 = _hash_word_bits_np(triples[:, 0], triples[:, 1],
-                                          triples[:, 2], log2m)
-        mask = (np.uint32(1) << b1) | (np.uint32(1) << b2)
-        np.bitwise_or.at(bits, word, mask)
-    return TripleFilter(bits=torch.as_tensor(bits.view(np.int32),
-                                             device=device), log2m=log2m)
+    with span("setup.triple_filter"):
+        bits = np.zeros((1 << log2m) // 32, np.uint32)
+        if len(triples):
+            triples = np.asarray(triples)
+            word, b1, b2 = _hash_word_bits_np(triples[:, 0], triples[:, 1],
+                                              triples[:, 2], log2m)
+            mask = (np.uint32(1) << b1) | (np.uint32(1) << b2)
+            np.bitwise_or.at(bits, word, mask)
+        return TripleFilter(bits=torch.as_tensor(bits.view(np.int32),
+                                                 device=device),
+                            log2m=log2m)
 
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
@@ -226,9 +230,10 @@ def _draw(gen, h, t, lo, hi, corrupt_head, neighbors, counts):
 
 def _slot_hits(tfilter, cand, corrupt_head, h, r, t):
     """Bloom test of every slot's assembled negative."""
-    neg_h = torch.where(corrupt_head, cand, h[:, None])
-    neg_t = torch.where(corrupt_head, t[:, None], cand)
-    return triple_filter_contains(tfilter, neg_h, r[:, None], neg_t)
+    with span("draw.bloom"):
+        neg_h = torch.where(corrupt_head, cand, h[:, None])
+        neg_t = torch.where(corrupt_head, t[:, None], cand)
+        return triple_filter_contains(tfilter, neg_h, r[:, None], neg_t)
 
 
 def _coins_and_draw(gen, pos, lo, hi, neg_num, neighbors):

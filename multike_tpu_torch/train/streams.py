@@ -74,6 +74,7 @@ from multike_tpu_torch.sampling import (TripleFilter, sample_corruptions,
                                         sample_shared_neighbor_corruptions,
                                         triple_filter_contains)
 from multike_tpu_torch.train import optimizers, sparse_adagrad
+from multike_tpu_torch.utils.profiling import count, span
 from multike_tpu_torch.views.attr_conv import conv_score
 
 STREAM_SPEC: Dict[str, Tuple[Tuple[str, ...], Tuple[str, ...]]] = {
@@ -197,31 +198,55 @@ def _make_stream_update(cfg: Config, stream: str, prep, loss_fn,
                          "not off")
     shard = shard or _dp_shard
 
-    def update(params, opt_state, *batch):
-        if pctx is not None:
-            batch = shard(pctx, *batch)
-        ids, aux = prep(*batch)
-        if frozen:
-            with torch.no_grad():
-                aux = {t: gather_rows(pctx, t, params[t], ids[row_tables[0]])
-                       for t in frozen}
-        sparse = pctx is not None or use_row_sparse(
-            cfg, params[row_tables[0]].shape[0],
-            ids_count=ids[row_tables[0]].shape[0])
-        if sparse:
-            rows = {t: gather_rows(pctx, t, params[t], ids[t]).requires_grad_()
-                    for t in row_tables}
-            dense = {k: _grad_leaf(params[k]) for k in dense_names}
+    def step(params, opt_state, *batch):
+        with span("step.gather"):
+            if pctx is not None:
+                batch = shard(pctx, *batch)
+            ids, aux = prep(*batch)
+            if frozen:
+                with torch.no_grad():
+                    aux = {t: gather_rows(pctx, t, params[t],
+                                          ids[row_tables[0]])
+                           for t in frozen}
+            sparse = pctx is not None or use_row_sparse(
+                cfg, params[row_tables[0]].shape[0],
+                ids_count=ids[row_tables[0]].shape[0])
+            if sparse:
+                rows = {t: gather_rows(pctx, t, params[t], ids[t])
+                        .requires_grad_() for t in row_tables}
+                dense = {k: _grad_leaf(params[k]) for k in dense_names}
+            else:
+                leaves = {k: _grad_leaf(params[k]) for k in names}
+                rows = {t: leaves[t][ids[t]] for t in row_tables}
+                dense = {k: leaves[k] for k in dense_names}
+        with span("step.forward"):
             loss = loss_fn(rows, dense, aux, *batch)
+        if not sparse:
+            with span("step.backward"):
+                grads = _rebuild(leaves, iter(torch.autograd.grad(
+                    loss, _leaves(leaves))))
+            with span("step.apply"), torch.no_grad():
+                if adagrad:
+                    for k in names:
+                        sparse_adagrad.dense_apply(params[k], opt_state[k],
+                                                   grads[k], lr)
+                else:
+                    optimizers.apply(cfg.optimizer,
+                                     {k: params[k] for k in names},
+                                     opt_state, grads, lr)
+            return loss.detach()
+
+        with span("step.backward"):
             grads = torch.autograd.grad(
                 loss, list(rows.values()) + _leaves(dense))
-            loss = loss.detach()
-            g_dense = grads[len(row_tables):]
-            sizes = {}
-            if pctx is not None:
-                # one sum over dp: the whole batch's loss, every rank's id
-                # count of each row table (in its own slot) and the dense
-                # gradients
+        loss = loss.detach()
+        g_dense = grads[len(row_tables):]
+        sizes = {}
+        if pctx is not None:
+            # one sum over dp: the whole batch's loss, every rank's id
+            # count of each row table (in its own slot) and the dense
+            # gradients
+            with span("step.allreduce"):
                 counts = torch.zeros(len(row_tables), pctx.dp,
                                      device=loss.device)
                 for i, t in enumerate(row_tables):
@@ -233,38 +258,29 @@ def _make_stream_update(cfg: Config, stream: str, prep, loss_fn,
                 for i, t in enumerate(row_tables):
                     sizes[t] = flat[1 + i * pctx.dp:1 + (i + 1) * pctx.dp
                                     ].long().tolist()
-                g_dense = [x.view_as(g) for x, g in zip(flat[1 + counts.numel():]
-                           .split([g.numel() for g in g_dense]), g_dense)]
-            g_dense = iter(g_dense)
-            with torch.no_grad():
-                for t, g in zip(row_tables, grads):
-                    if pctx is not None:
-                        row_apply_sharded(pctx, t, params[t], opt_state[t],
-                                          ids[t], g, lr, sizes[t])
-                    else:
-                        sparse_adagrad.row_apply(params[t], opt_state[t],
-                                                 ids[t], g, lr)
-                for k in dense_names:
-                    sparse_adagrad.dense_apply(
-                        params[k], opt_state[k], _rebuild(dense[k], g_dense),
-                        lr)
-            return loss
+                g_dense = [x.view_as(g) for x, g in zip(
+                    flat[1 + counts.numel():].split(
+                        [g.numel() for g in g_dense]), g_dense)]
+        g_dense = iter(g_dense)
+        with span("step.apply"), torch.no_grad():
+            for t, g in zip(row_tables, grads):
+                if pctx is not None:
+                    row_apply_sharded(pctx, t, params[t], opt_state[t],
+                                      ids[t], g, lr, sizes[t])
+                else:
+                    sparse_adagrad.row_apply(params[t], opt_state[t],
+                                             ids[t], g, lr)
+            for k in dense_names:
+                sparse_adagrad.dense_apply(
+                    params[k], opt_state[k], _rebuild(dense[k], g_dense),
+                    lr)
+        return loss
 
-        leaves = {k: _grad_leaf(params[k]) for k in names}
-        rows = {t: leaves[t][ids[t]] for t in row_tables}
-        dense = {k: leaves[k] for k in dense_names}
-        loss = loss_fn(rows, dense, aux, *batch)
-        grads = _rebuild(leaves, iter(torch.autograd.grad(
-            loss, _leaves(leaves))))
-        with torch.no_grad():
-            if adagrad:
-                for k in names:
-                    sparse_adagrad.dense_apply(params[k], opt_state[k],
-                                               grads[k], lr)
-            else:
-                optimizers.apply(cfg.optimizer, {k: params[k] for k in names},
-                                 opt_state, grads, lr)
-        return loss.detach()
+    step_span = stream + ".step"
+
+    def update(params, opt_state, *batch):
+        with span(step_span):
+            return step(params, opt_state, *batch)
 
     return update
 
@@ -460,23 +476,27 @@ class RelViewEpoch:
             raise ValueError("the truncated phase needs a NeighborState")
         (lo1, hi1), (lo2, hi2) = self.ranges
         steps = self.steps
-        idx1, m1 = _padded_epoch_indices(gen, self.n1, self.bs1, self.bsp1,
-                                         steps)
-        idx2, m2 = _padded_epoch_indices(gen, self.n2, self.bs2, self.bsp2,
-                                         steps)
-        pos1, pos2 = triples1[idx1], triples2[idx2]
-        ch1, ct1 = self._pools(gen, pos1, m1, self.nc1, self.s1, lo1, hi1,
-                               neighbors)
-        ch2, ct2 = self._pools(gen, pos2, m2, self.nc2, self.s2, lo2, hi2,
-                               neighbors)
+        with span("rel_view.draw"):
+            with span("draw.positives"):
+                idx1, m1 = _padded_epoch_indices(gen, self.n1, self.bs1,
+                                                 self.bsp1, steps)
+                idx2, m2 = _padded_epoch_indices(gen, self.n2, self.bs2,
+                                                 self.bsp2, steps)
+                pos1, pos2 = triples1[idx1], triples2[idx2]
+            with span("draw.negatives"):
+                ch1, ct1 = self._pools(gen, pos1, m1, self.nc1, self.s1,
+                                       lo1, hi1, neighbors)
+                ch2, ct2 = self._pools(gen, pos2, m2, self.nc2, self.s2,
+                                       lo2, hi2, neighbors)
         return pos1, m1, ch1, ct1, pos2, m2, ch2, ct2
 
     def __call__(self, params, opt_state, gen: torch.Generator, triples1,
                  triples2, neighbors=None):
-        xs = self.draw(gen, triples1, triples2, neighbors)
-        total = torch.zeros((), dtype=torch.float32, device=gen.device)
-        for i in range(self.steps):
-            total += self.step(params, opt_state, *(x[i] for x in xs))
+        with span("rel_view.epoch"):
+            xs = self.draw(gen, triples1, triples2, neighbors)
+            total = torch.zeros((), dtype=torch.float32, device=gen.device)
+            for i in range(self.steps):
+                total += self.step(params, opt_state, *(x[i] for x in xs))
         return total
 
 
@@ -565,17 +585,19 @@ class PerSlotRelViewEpoch:
     def _positives(self, gen, triples1, triples2, neighbors):
         if self.with_neighbors and neighbors is None:
             raise ValueError("the truncated phase needs a NeighborState")
-        idx1, m1 = _padded_epoch_indices(gen, self.n1, self.bs1, self.bs1,
-                                         self.steps)
-        idx2, m2 = _padded_epoch_indices(gen, self.n2, self.bs2, self.bs2,
-                                         self.steps)
-        return triples1[idx1], m1, triples2[idx2], m2
+        with span("draw.positives"):
+            idx1, m1 = _padded_epoch_indices(gen, self.n1, self.bs1,
+                                             self.bs1, self.steps)
+            idx2, m2 = _padded_epoch_indices(gen, self.n2, self.bs2,
+                                             self.bs2, self.steps)
+            return triples1[idx1], m1, triples2[idx2], m2
 
     def _corrupt(self, gen, pos, lo, hi, neighbors, mode):
-        cand, hb, keep = sample_corruptions(
-            gen, pos.reshape(-1, 3), lo, hi, self.neg_num,
-            neighbors if self.with_neighbors else None, tfilter=self.tfilter,
-            retries=self.retries, reject_mode=mode)
+        with span("draw.negatives"):
+            cand, hb, keep = sample_corruptions(
+                gen, pos.reshape(-1, 3), lo, hi, self.neg_num,
+                neighbors if self.with_neighbors else None,
+                tfilter=self.tfilter, retries=self.retries, reject_mode=mode)
         shape = pos.shape[:-1] + (self.neg_num,)
         return (cand.reshape(shape), hb.reshape(shape),
                 None if keep is None else keep.reshape(shape))
@@ -585,25 +607,36 @@ class PerSlotRelViewEpoch:
         steps: positives, masks, candidates, coins and keep masks of each
         KG (all-ones keep masks without a filter)."""
         mode = "drop" if self.tfilter is not None else "resample"
-        pos1, m1, pos2, m2 = self._positives(gen, triples1, triples2,
-                                             neighbors)
-        (lo1, hi1), (lo2, hi2) = self.ranges
-        out = []
-        self.dropped = None
-        for pos, m, lo, hi in ((pos1, m1, lo1, hi1), (pos2, m2, lo2, hi2)):
-            cand, hb, keep = self._corrupt(gen, pos, lo, hi, neighbors, mode)
-            if keep is None:
-                keep = torch.ones(cand.shape, dtype=torch.float32,
-                                  device=cand.device)
-            else:
-                drop = ((1.0 - keep) * m[..., None]).sum()
-                self.dropped = drop if self.dropped is None \
-                    else self.dropped + drop
-            out += [pos, m, cand, hb, keep]
+        with span("rel_view.draw"):
+            pos1, m1, pos2, m2 = self._positives(gen, triples1, triples2,
+                                                 neighbors)
+            (lo1, hi1), (lo2, hi2) = self.ranges
+            out = []
+            self.dropped = None
+            for pos, m, lo, hi in ((pos1, m1, lo1, hi1),
+                                   (pos2, m2, lo2, hi2)):
+                cand, hb, keep = self._corrupt(gen, pos, lo, hi, neighbors,
+                                               mode)
+                if keep is None:
+                    keep = torch.ones(cand.shape, dtype=torch.float32,
+                                      device=cand.device)
+                else:
+                    drop = ((1.0 - keep) * m[..., None]).sum()
+                    self.dropped = drop if self.dropped is None \
+                        else self.dropped + drop
+                out += [pos, m, cand, hb, keep]
+        if self.dropped is not None:
+            count("sampling.dropped", self.dropped)
+            count("sampling.slots", self.slots)
         return tuple(out)
 
     def __call__(self, params, opt_state, gen: torch.Generator, triples1,
                  triples2, neighbors=None):
+        with span("rel_view.epoch"):
+            return self._epoch(params, opt_state, gen, triples1, triples2,
+                               neighbors)
+
+    def _epoch(self, params, opt_state, gen, triples1, triples2, neighbors):
         total = torch.zeros((), dtype=torch.float32, device=gen.device)
         if self.presample:
             xs = self.draw(gen, triples1, triples2, neighbors)
@@ -612,12 +645,16 @@ class PerSlotRelViewEpoch:
             return total
         # in-step resampling: each step draws, then redraws its offenders
         self.dropped = None
-        pos1, m1, pos2, m2 = self._positives(gen, triples1, triples2,
-                                             neighbors)
+        with span("rel_view.draw"):
+            pos1, m1, pos2, m2 = self._positives(gen, triples1, triples2,
+                                                 neighbors)
         (lo1, hi1), (lo2, hi2) = self.ranges
         for i in range(self.steps):
-            c1 = self._corrupt(gen, pos1[i], lo1, hi1, neighbors, "resample")
-            c2 = self._corrupt(gen, pos2[i], lo2, hi2, neighbors, "resample")
+            with span("rel_view.draw"):
+                c1 = self._corrupt(gen, pos1[i], lo1, hi1, neighbors,
+                                   "resample")
+                c2 = self._corrupt(gen, pos2[i], lo2, hi2, neighbors,
+                                   "resample")
             total += self.step(params, opt_state, pos1[i], m1[i], *c1,
                                pos2[i], m2[i], *c2)
         return total
@@ -698,11 +735,12 @@ class AttrViewEpoch:
 
     def __call__(self, params, opt_state, gen: torch.Generator, constants,
                  trips1, w1, trips2, w2):
-        xs = self.draw(gen, trips1, w1, trips2, w2)
-        total = torch.zeros((), dtype=torch.float32, device=gen.device)
-        for i in range(self.steps):
-            total += self.step(params, opt_state, constants,
-                               *(x[i] for x in xs))
+        with span("attr_view.epoch"):
+            xs = self.draw(gen, trips1, w1, trips2, w2)
+            total = torch.zeros((), dtype=torch.float32, device=gen.device)
+            for i in range(self.steps):
+                total += self.step(params, opt_state, constants,
+                                   *(x[i] for x in xs))
         return total
 
 
@@ -728,18 +766,20 @@ class SampledEpoch:
         self.steps = max(1, int(np.ceil(n / batch_size)))
         self.bs = batch_size if self.steps > 1 else n
         self.trained_per_epoch = self.steps * self.bs
+        self.epoch_span = stream + ".epoch"
         self.step = _make_stream_update(cfg, stream, prep, loss_fn, frozen,
                                         pctx)
 
     def __call__(self, params, opt_state, gen: torch.Generator, *data,
                  constants=None):
         lead = () if constants is None else (constants,)
-        total = torch.zeros((), dtype=torch.float32, device=gen.device)
-        for _ in range(self.steps):
-            sel = torch.randperm(self.n, generator=gen,
-                                 device=gen.device)[:self.bs]
-            total += self.step(params, opt_state, *lead,
-                               *(d[sel] for d in data))
+        with span(self.epoch_span):
+            total = torch.zeros((), dtype=torch.float32, device=gen.device)
+            for _ in range(self.steps):
+                sel = torch.randperm(self.n, generator=gen,
+                                     device=gen.device)[:self.bs]
+                total += self.step(params, opt_state, *lead,
+                                   *(d[sel] for d in data))
         return total
 
 

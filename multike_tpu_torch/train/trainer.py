@@ -42,6 +42,7 @@ from multike_tpu_torch.sampling import (NeighborState, build_triple_filter,
 from multike_tpu_torch.train import streams
 from multike_tpu_torch.utils.device import resolve_device
 from multike_tpu_torch.utils.metrics import MetricsLog
+from multike_tpu_torch.utils.profiling import span
 
 
 def topk_global_ids(embeds: torch.Tensor, useful_ids: torch.Tensor, k: int,
@@ -346,24 +347,25 @@ class MultiKETrainer:
     def generate_neighbors(self):
         """Refresh the truncated-sampling candidates from the current rv
         embeddings of each KG's useful entities, on the device."""
-        t1 = time.time()
-        kgs = self.kgs
-        rv = l2_normalize(self._table("rv_ent"), axis=1)
-        u1, u2 = (torch.as_tensor(u, dtype=torch.long, device=self.device)
-                  for u in (kgs.useful_entities_list1,
-                            kgs.useful_entities_list2))
-        k1 = min(self.k_nbr1, int(u1.shape[0]))
-        k2 = min(self.k_nbr2, int(u2.shape[0]))
-        self.neighbors = refresh_neighbor_state(rv, (u1, u2), (k1, k2),
-                                                max(k1, k2, 8))
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        seconds = time.time() - t1
-        self.metrics.record(stream="neighbors", seconds=seconds,
-                            k=(k1, k2))
-        self._log("generating neighbors of {} entities costs {:.3f} s."
-                  .format(kgs.kg1.entities_num + kgs.kg2.entities_num,
-                          seconds))
+        with span("refresh.neighbors"):
+            t1 = time.time()
+            kgs = self.kgs
+            rv = l2_normalize(self._table("rv_ent"), axis=1)
+            u1, u2 = (torch.as_tensor(u, dtype=torch.long, device=self.device)
+                      for u in (kgs.useful_entities_list1,
+                                kgs.useful_entities_list2))
+            k1 = min(self.k_nbr1, int(u1.shape[0]))
+            k2 = min(self.k_nbr2, int(u2.shape[0]))
+            self.neighbors = refresh_neighbor_state(rv, (u1, u2), (k1, k2),
+                                                    max(k1, k2, 8))
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            seconds = time.time() - t1
+            self.metrics.record(stream="neighbors", seconds=seconds,
+                                k=(k1, k2))
+            self._log("generating neighbors of {} entities costs {:.3f} s."
+                      .format(kgs.kg1.entities_num + kgs.kg2.entities_num,
+                              seconds))
 
     # ------------------------------------------------------------------
     # embedding access (normalized reads, like the reference's tensor reads)
