@@ -8,6 +8,7 @@
     python3 chip_smoke.py --k1-of DIR   # phase 1, then DIR's
                                         # sparse_adagrad.row_apply timed at
                                         # phase 2's steps
+    python3 chip_smoke.py --k3          # phases 1 and 2b only
 
 (``--mesh-rank TASK SPEC`` is how phase 8 starts its rank processes.)
 
@@ -25,6 +26,14 @@ Phases, each of which must pass or the script exits non-zero:
      rel_view step of phase 7's 20K pair: bitwise equal to its plain
      version on the CPU and from launch to launch, within rtol 2e-6 / atol
      1e-7 of its plain version on the card, timed beside its bytes bound;
+  2b. K3, the chunk-shared loss with its gradients, at the relation-view
+     cell's step (two KGs: 10 chunks of 4,064 and of 3,937 positives,
+     pools of 128, d = 75) and at d = 384, through the wrapper and
+     autograd's backward (incoming gradient 0.37), with keep flags and
+     without: within rtol 1e-6 (the loss) and 2e-6 of the largest element
+     (each gradient) of its plain version in float64 on the card, bitwise
+     from call to call, timed (its two kernels apart, by the profiler)
+     beside its FLOP bound and its plain version in float32;
   3. K2, the fused rank count, against its plain version at 35K x 70K,
      d=75, and at the main path's own 6K x 6K and 2K x 8K, then in CSLS
      form; at each shape it is timed beside the plain version and
@@ -36,7 +45,7 @@ Phases, each of which must pass or the script exits non-zero:
      version (compared, not timed);
   4. the main path: ``MultiKETrainer`` trains the relation view on the
      port's synthetic 20K-entity KG pair and ``views.valid_metrics`` ranks
-     it; the rv valid MRR must rise and both kernels must have launched;
+     it; the rv valid MRR must rise and K1, K2 and K3 must have launched;
   5. relation-view throughput at bench.py's shape (100K entities and 600K
      random triples per KG, batch 80000);
      Then bench.py's reference-parity row: batch 5000, per_slot negatives
@@ -389,7 +398,8 @@ def _k1_case(dev, peaks, ids, rows, d, seed, label):
     ms = time_ms(lambda: ak.row_adagrad(p_k, a_k, ids, g_rows, lr), 20)
     plain_ms = time_ms(
         lambda: ak.row_adagrad_plain(p_p, a_p, ids, g_rows, lr), 5)
-    passes = k1_passes_ms(lambda: ak.row_adagrad(p_k, a_k, ids, g_rows, lr))
+    passes = passes_ms(lambda: ak.row_adagrad(p_k, a_k, ids, g_rows, lr),
+                       "count|place|fill|apply")
     mem_rate = peaks[0]
     bound_ms = k1_bound_ms(N, U, d, mem_rate)
     log(f"[K1] {label} step, rows={rows} d={d} ids={N} unique={U} (most "
@@ -406,9 +416,10 @@ def _k1_case(dev, peaks, ids, rows, d, seed, label):
                 shape=dict(rows=rows, d=d, ids=N, unique=U, most=most))
 
 
-def k1_passes_ms(run, calls: int = 10) -> dict:
-    """Device ms a call of each of K1's passes (count, place, fill, apply),
-    from torch.profiler over ``calls`` calls of ``run``."""
+def passes_ms(run, names: str, calls: int = 10) -> dict:
+    """Device ms a call of each kernel ``<name>_kernel`` of ``names`` (a
+    regex alternation), from torch.profiler over ``calls`` calls of
+    ``run``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -420,11 +431,154 @@ def k1_passes_ms(run, calls: int = 10) -> dict:
         torch.cuda.synchronize()
     out = {}
     for e in prof.events():
-        m = re.search(r"(count|place|fill|apply)_kernel", e.name)
+        m = re.search(rf"({names})_kernel", e.name)
         if e.device_type == DeviceType.CUDA and m:
             out[m[1]] = out.get(m[1], 0.0) + (
                 e.time_range.end - e.time_range.start) / 1e3 / calls
     return out
+
+
+# K3's shapes: a step of the benchmark's relation-view cell
+# rv-dwy100k-chunk-b80k (batch 80,000 of 463,294 and 448,774 triples: 10
+# chunks of 4,064 and of 3,937 positives, pools of 128, d = 75), and the
+# first KG's chunks at d = 384
+K3_STEP = ((10, 4064, 128, 75), (10, 3937, 128, 75))
+K3_WIDE = ((10, 4064, 128, 384),)
+
+
+def k3_inputs(dev, nc, s, c, d, seed, keep=False):
+    """Unit rows of one KG's chunks and pools, a chunk-padding mask (a
+    masked tail in the last chunk, as the epoch pads) and, with ``keep``,
+    keep flags dropping about 1% of the pairs (as exact rejection does);
+    without, none, as the cell's uniform phase has it."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rows = [torch.nn.functional.normalize(
+        torch.randn(nc, n, d, device=dev, generator=g), dim=-1)
+        for n in (s, s, s, c, c)]
+    mask = torch.ones(nc, s, device=dev)
+    mask[-1, s - 7:] = 0.0
+    flags = [None, None]
+    if keep:
+        flags = [(torch.rand(nc, s, c, device=dev, generator=g) > 0.01)
+                 .float() for _ in range(2)]
+    return rows, mask, flags
+
+
+def _k3_grads(rows, w, mask, flags, gout):
+    """The loss and the five gradients as the main path takes them: the
+    wrapper's ``Function`` on leaves, then autograd's backward with the
+    incoming gradient ``gout`` (a 0-dim tensor on the rows' device)."""
+    import torch
+
+    from multike_tpu_torch.kernels import chunk_loss as ck
+
+    leaves = [x.detach().requires_grad_() for x in rows]
+    loss = ck.chunk_shared_loss(*leaves, w, mask, *flags)
+    grads = torch.autograd.grad(loss, leaves, gout)
+    return loss.detach(), grads
+
+
+def _k3_case(dev, peaks, kgs, label, seed=0, w=10 / 256, scale=0.37):
+    """K3 over the KGs ``kgs`` of one step, (nc, s, c, d) each, through
+    the wrapper the main path calls (``chunk_shared_loss`` and autograd's
+    backward with an incoming gradient of ``scale``), with keep flags and
+    without: against its plain version in float64 on the card (the loss
+    within rtol 1e-6, each gradient within 2e-6 of its largest element),
+    bitwise from call to call and with the loss alone; the launcher's
+    passes timed beside its bound and the plain version in float32."""
+    import torch
+
+    from multike_tpu_torch.kernels import chunk_loss as ck
+
+    err = 0.0
+    gout = torch.tensor(scale, device=dev)
+    for keep in (False, True):
+        ins = [k3_inputs(dev, *kg, seed + i, keep) for i, kg in
+               enumerate(kgs)]
+        for rows, mask, flags in ins:
+            n = ck.launches
+            loss, grads = _k3_grads(rows, w, mask, flags, gout)
+            loss2, grads2 = _k3_grads(rows, w, mask, flags, gout)
+            with torch.no_grad():
+                alone = ck.chunk_shared_loss(*rows, w, mask, *flags)
+            torch.cuda.synchronize()
+            check(ck.launches == n + 3, f"K3 {label}: {ck.launches - n} "
+                  "launches for three calls")
+            check(torch.equal(loss, loss2) and all(
+                torch.equal(a, b) for a, b in zip(grads, grads2)),
+                f"K3 {label}: two calls differ")
+            check(torch.equal(alone, loss), f"K3 {label}: the loss alone "
+                  "differs from the loss with its gradients")
+            want_loss, want = ck.chunk_shared_loss_plain(
+                *(x.double() for x in rows), neg_weight=w,
+                pos_mask=mask.double(),
+                **{k: None if f is None else f.double()
+                   for k, f in zip(("keep_h", "keep_t"), flags)})
+            rel = abs(float(loss) - float(want_loss)) / abs(float(want_loss))
+            check(rel <= 1e-6, f"K3 {label}: loss {float(loss)} is "
+                  f"{rel:.2e} from the float64 plain version's "
+                  f"{float(want_loss)}")
+            for name, got, g in zip(("phs", "prs", "pts", "cand_h",
+                                     "cand_t"), grads, want):
+                g = scale * g
+                check(got.shape == g.shape, f"K3 {label}: {name}'s "
+                      f"gradient {tuple(got.shape)}, not {tuple(g.shape)}")
+                e = float((got.double() - g).abs().max()) / float(
+                    g.abs().max())
+                check(e <= 2e-6, f"K3 {label}: {name}'s gradient {e:.2e} "
+                      "of its largest element from the float64 plain "
+                      "version")
+                err = max(err, e)
+
+    ins = [k3_inputs(dev, *kg, seed + i) for i, kg in enumerate(kgs)]
+
+    def step(fn, **kw):
+        return [fn(*rows, w, mask, *flags, **kw)
+                for rows, mask, flags in ins]
+
+    def wrapped():
+        return [_k3_grads(rows, w, mask, flags, gout)
+                for rows, mask, flags in ins]
+
+    pairs = sum(nc * s * 2 * c for nc, s, c, _ in kgs)
+    flops = sum(nc * s * 2 * c * 6 * d for nc, s, c, d in kgs)
+    bound_ms = flops / peaks[1] * 1e3
+    ms = time_ms(lambda: step(ck._launch, grads=True), 20)
+    wrapper_ms = time_ms(wrapped, 20)
+    loss_ms = time_ms(lambda: step(ck._launch, grads=False), 20)
+    plain_ms = time_ms(lambda: step(ck.chunk_shared_loss_plain), 5)
+    passes = passes_ms(lambda: step(ck._launch, grads=True),
+                       "chunk_loss|pool_sum")
+    log(f"[K3] {label}: {kgs}, {pairs} pairs: kernel {ms:.4f} ms a step "
+        f"(passes {', '.join(f'{k} {v:.4f}' for k, v in passes.items())}; "
+        f"through the wrapper and autograd {wrapper_ms:.4f}; loss alone "
+        f"{loss_ms:.4f}), bound {bound_ms:.4f} ms "
+        f"({100 * bound_ms / ms:.1f}%; 6d FLOPs a pair at "
+        f"{peaks[1] / 1e12:.0f} TFLOP/s), plain {plain_ms:.4f} ms; bitwise "
+        f"call to call; the wrapper's gradients {err:.2e} of their largest "
+        "element from the float64 plain version")
+    return dict(ms=ms, wrapper_ms=wrapper_ms, loss_only_ms=loss_ms,
+                passes_ms=passes, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_share=bound_ms / ms, max_rel_err=err, pairs=pairs,
+                flops=flops, shape=[list(kg) for kg in kgs])
+
+
+def phase_chunk_loss(dev, peaks):
+    """K3 at the relation-view cell's step and at d = 384."""
+    main = _k3_case(dev, peaks, K3_STEP, "rel_view cell step")
+    wide = _k3_case(dev, peaks, K3_WIDE, "d = 384")
+    return dict(name="chunk_loss", route="cuda",
+                source="multike_tpu_torch/csrc/chunk_loss_kernel.cu",
+                replaces=None,
+                wrapper="multike_tpu_torch.kernels.chunk_loss."
+                        "chunk_shared_loss",
+                max_rel_err=max(main["max_rel_err"], wide["max_rel_err"]),
+                ms=main["ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], bound_by="operations",
+                library_ms=None, shape=main["shape"], step=main,
+                wide_step=wide)
 
 
 def phase_k1_of(dev, peaks, root, seed=0, **sizes):
@@ -703,8 +857,6 @@ def phase_main_path(dev, n=20_000, epochs=4, dim=75, batch=5000):
     through views.valid_metrics; returns the kernels' launch counts."""
     from multike_tpu_torch.config import Config
     from multike_tpu_torch.eval import views
-    from multike_tpu_torch.kernels import apply_kernel as ak
-    from multike_tpu_torch.kernels import rank_kernel as rk
     from multike_tpu_torch.train.trainer import MultiKETrainer
 
     t0 = time.time()
@@ -715,8 +867,7 @@ def phase_main_path(dev, n=20_000, epochs=4, dim=75, batch=5000):
                  row_sparse_updates=True, use_pallas_apply=True)
     log(f"[main] {n} entities per KG, data ready in {time.time() - t0:.1f} s")
 
-    ak.launches = 0
-    rk.launches = 0
+    _zero_launches()
     trainer = MultiKETrainer(cfg, _Data(kgs), verbose=True, device=dev)
     _, before = views.valid_metrics(trainer, "rv")
     sup = kgs.kg1.sup_relation_triples_list + kgs.kg2.sup_relation_triples_list
@@ -727,7 +878,7 @@ def phase_main_path(dev, n=20_000, epochs=4, dim=75, batch=5000):
         trainer.train_cross_kg_entity_inference_relation_view_1epo(ep, sup)
     train_s = time.time() - t0
     hits1, after = views.valid_metrics(trainer, "rv")
-    launches = {"fused_row_adagrad": ak.launches, "rank_count": rk.launches}
+    launches = _launches()
     emb = trainer.current_embeds_device("rv")
     check(tuple(emb.shape) == (kgs.entities_num, dim)
           and bool(emb.isfinite().all()), "rv embeddings not finite")
@@ -1050,16 +1201,19 @@ def _count_launches(fn, into: dict, key: str):
     """``fn`` wrapped to add the kernels' launches and the seconds of each
     call under ``key``."""
     from multike_tpu_torch.kernels import apply_kernel as ak
+    from multike_tpu_torch.kernels import chunk_loss as ck
     from multike_tpu_torch.kernels import rank_kernel as rk
 
     def wrapped(*a, **kw):
-        k1, k2, t0 = ak.launches, rk.launches, time.time()
+        k1, k2, k3, t0 = ak.launches, rk.launches, ck.launches, time.time()
         out = fn(*a, **kw)
         rec = into.setdefault(key, {"calls": 0, "fused_row_adagrad": 0,
-                                    "rank_count": 0, "seconds": []})
+                                    "rank_count": 0, "chunk_loss": 0,
+                                    "seconds": []})
         rec["calls"] += 1
         rec["fused_row_adagrad"] += ak.launches - k1
         rec["rank_count"] += rk.launches - k2
+        rec["chunk_loss"] += ck.launches - k3
         rec["seconds"].append(time.time() - t0)
         return out
     return wrapped
@@ -1094,8 +1248,6 @@ def phase_itc(dev, n=20_000, dim=75, batch=5000, epochs=10, cpu_rows=256):
     from multike_tpu_torch.align.predicates import PredicateAlignModel
     from multike_tpu_torch.data.dataset import DataModel
     from multike_tpu_torch.eval import views
-    from multike_tpu_torch.kernels import apply_kernel as ak
-    from multike_tpu_torch.kernels import rank_kernel as rk
     from multike_tpu_torch.persistence import EMBEDDING_FILES, ID_FILES
     from multike_tpu_torch.train.itc import MultiKE_ITC
 
@@ -1121,13 +1273,11 @@ def phase_itc(dev, n=20_000, dim=75, batch=5000, epochs=10, cpu_rows=256):
     views.valid_metrics = _count_launches(saved[0], by_eval, "valid")
     views.test = _count_launches(saved[1], by_eval, "test")
     try:
-        ak.launches = 0
-        rk.launches = 0
+        _zero_launches()
         t0 = time.time()
         results = model.run()
         run_s = time.time() - t0
-        launches = {"fused_row_adagrad": ak.launches,
-                    "rank_count": rk.launches}
+        launches = _launches()
     finally:
         views.valid_metrics, views.test = saved
     after = {v: views.valid(model, v) for v in ("rv", "final")}
@@ -1381,8 +1531,6 @@ def phase_ssl(dev, data, n=20_000, dim=75, batch=5000, epochs=10):
 
     from multike_tpu_torch.align.predicates import PredicateAlignModel
     from multike_tpu_torch.eval import views
-    from multike_tpu_torch.kernels import apply_kernel as ak
-    from multike_tpu_torch.kernels import rank_kernel as rk
     from multike_tpu_torch.persistence import EMBEDDING_FILES, ID_FILES
     from multike_tpu_torch.train.ssl import MultiKE_SSL
 
@@ -1407,13 +1555,11 @@ def phase_ssl(dev, data, n=20_000, dim=75, batch=5000, epochs=10):
     for f in SSL_EVALS:
         setattr(views, f, _count_launches(saved[f], by_eval, f))
     try:
-        ak.launches = 0
-        rk.launches = 0
+        _zero_launches()
         t0 = time.time()
         results = model.run()
         run_s = time.time() - t0
-        launches = {"fused_row_adagrad": ak.launches,
-                    "rank_count": rk.launches}
+        launches = _launches()
     finally:
         for f in SSL_EVALS:
             setattr(views, f, saved[f])
@@ -1629,17 +1775,21 @@ def spawn_ranks(task: str, n: int, spec: dict, timeout: float):
 
 def _launches():
     from multike_tpu_torch.kernels import apply_kernel as ak
+    from multike_tpu_torch.kernels import chunk_loss as ck
     from multike_tpu_torch.kernels import rank_kernel as rk
 
-    return {"fused_row_adagrad": ak.launches, "rank_count": rk.launches}
+    return {"fused_row_adagrad": ak.launches, "rank_count": rk.launches,
+            "chunk_loss": ck.launches}
 
 
 def _zero_launches():
     from multike_tpu_torch.kernels import apply_kernel as ak
+    from multike_tpu_torch.kernels import chunk_loss as ck
     from multike_tpu_torch.kernels import rank_kernel as rk
 
     ak.launches = 0
     rk.launches = 0
+    ck.launches = 0
 
 
 def _sync(dev):
@@ -2102,7 +2252,7 @@ def phase_mesh(dev, card, n=20_000, dim=75, batch=5000, epochs=10,
                 check(counts[name] > 0, f"{name} did not launch on rank {r} "
                       f"of the mesh run {run}: {by_rank[run]}")
     total = {name: sum(c[name] for runs_ in by_rank.values() for c in runs_)
-             for name in ("fused_row_adagrad", "rank_count")}
+             for name in ("fused_row_adagrad", "rank_count", "chunk_loss")}
     numbers["launches_by_rank"] = by_rank
     log(f"[mesh] {json.dumps(numbers)}")
     return total, by_rank, numbers
@@ -2209,11 +2359,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script needs one GPU",
               file=sys.stderr)
         return 2
-    if args and (len(args) != 2 or args[0] not in ("--k1-of", "--k2-of")):
-        print("usage: chip_smoke.py [--k1-of DIR | --k2-of DIR]",
+    if args and args != ["--k3"] and (
+            len(args) != 2 or args[0] not in ("--k1-of", "--k2-of")):
+        print("usage: chip_smoke.py [--k1-of DIR | --k2-of DIR | --k3]",
               file=sys.stderr)
         return 2
-    root = os.path.abspath(args[1]) if args else REPO
+    root = os.path.abspath(args[1]) if len(args) == 2 else REPO
     if not os.path.isdir(os.path.join(root, "multike_tpu_torch")):
         print(f"chip_smoke: the multike_tpu_torch package is not in {root}",
               file=sys.stderr)
@@ -2231,6 +2382,12 @@ def main() -> int:
         f"TB/s, {peaks[1] / 1e12:.0f} TFLOP/s fp32")
 
     phase_build()
+    if args == ["--k3"]:
+        k3 = phase_chunk_loss(dev, peaks)
+        log(f"[done] K3 in {time.time() - t_start:.1f} s")
+        print(json.dumps({"kernels": [k3]}), flush=True)
+        print(card, flush=True)
+        return 0
     if args and args[0] == "--k1-of":
         k1 = phase_k1_of(dev, peaks, root)
         log(f"[done] K1 of {root} in {time.time() - t_start:.1f} s")
@@ -2244,6 +2401,7 @@ def main() -> int:
         print(card, flush=True)
         return 0
     k1 = phase_apply(dev, peaks)
+    k3 = phase_chunk_loss(dev, peaks)
     k2 = phase_rank(dev, peaks)
     k2["widths"] = phase_widths(dev, peaks)
     main_launches = phase_main_path(dev)
@@ -2254,7 +2412,7 @@ def main() -> int:
     mesh_launches, mesh_by_rank, _ = phase_mesh(dev, card)
     wide_launches, wide = phase_wide_itc(dev)
 
-    for k in (k1, k2):
+    for k in (k1, k2, k3):
         k["launches"] = ssl_launches[k["name"]]
         k["launches_by_path"] = {"ssl": ssl_launches[k["name"]],
                                  "itc": itc_launches[k["name"]],
@@ -2268,7 +2426,7 @@ def main() -> int:
     log(f"[parity] {json.dumps(parity)}")
     log(f"[wide] {json.dumps(wide)}")
     log(f"[done] all phases passed in {time.time() - t_start:.1f} s")
-    print(json.dumps({"kernels": [k1, k2]}), flush=True)
+    print(json.dumps({"kernels": [k1, k2, k3]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

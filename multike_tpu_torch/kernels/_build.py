@@ -31,7 +31,7 @@ import threading
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
-SOURCES = ("apply_kernel.cu", "rank_kernel.cu")
+SOURCES = ("apply_kernel.cu", "rank_kernel.cu", "chunk_loss_kernel.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 HOST_SOURCES = ("host_helpers.cpp",)
@@ -47,6 +47,8 @@ _SIGNATURES = {
                    ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P],
     "rank_count_plan": [ctypes.c_int, ctypes.c_int, ctypes.c_int,
                         ctypes.c_int, ctypes.c_int, _P],
+    "chunk_loss": [_P] * 8 + [ctypes.c_float] + [ctypes.c_int] * 4
+                  + [_P] * 9,
 }
 _PCHAR = ctypes.POINTER(ctypes.c_char_p)
 # name -> (restype, argtypes) of each host entry point

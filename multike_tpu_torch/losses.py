@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from multike_tpu_torch.kernels.chunk_loss import chunk_shared_loss
 from multike_tpu_torch.params import l2_normalize
 
 
@@ -97,31 +98,17 @@ def chunk_shared_relation_logistic_loss(phs, prs, pts, cand_h, cand_t,
     ``cand_h/cand_t`` (NC, C, D) normalized shared head- and tail-corruption
     candidate rows. Every positive scores against all C candidates of each
     pool, each pair weighted ``neg_weight`` (K / (2C) reproduces the
-    reference's K per-slot draws in expectation).
+    reference's K per-slot draws in expectation):
+      corrupt head:  -||c + r - t||^2
+      corrupt tail:  -||h + r - c||^2
+    ``keep_h``/``keep_t`` (NC, S, C), optional: 0 drops a pair.
 
-    The cross terms of -||h' + r - t'||^2 are float32 batched matmuls
-    (TF32 is off, see the package docstring):
-      corrupt head:  -(|c|^2 + |r - t|^2 + 2 c.(r - t))
-      corrupt tail:  -(|h + r|^2 + |c|^2 - 2 (h + r).c)
-    ``keep_h``/``keep_t`` (NC, S, C), optional: 0 drops a pair."""
-    pos = F.softplus(-transe_score(phs, prs, pts))                 # (NC, S)
-    rt = prs - pts
-    ns_h = -(_sq_norm(cand_h)[:, None, :] + _sq_norm(rt)[..., None]
-             + 2.0 * torch.bmm(rt, cand_h.transpose(1, 2)))
-    hr = phs + prs
-    ns_t = -(_sq_norm(hr)[..., None] + _sq_norm(cand_t)[:, None, :]
-             - 2.0 * torch.bmm(hr, cand_t.transpose(1, 2)))
-    neg_h = F.softplus(ns_h)                                        # (NC, S, C)
-    neg_t = F.softplus(ns_t)
-    if keep_h is not None:
-        neg_h = neg_h * keep_h
-    if keep_t is not None:
-        neg_t = neg_t * keep_t
-    neg = (neg_h + neg_t) * neg_weight
-    if pos_mask is not None:
-        pos = pos * pos_mask
-        neg = neg * pos_mask[..., None]
-    return torch.sum(pos) + torch.sum(neg)
+    The loss and its gradients are computed together, by the kernel K3 on
+    the card and in closed form on the CPU (kernels/chunk_loss.py), all in
+    float32."""
+    return chunk_shared_loss(phs, prs, pts, cand_h, cand_t,
+                             neg_weight=neg_weight, pos_mask=pos_mask,
+                             keep_h=keep_h, keep_t=keep_t)
 
 
 def alignment_loss(ents1, ents2, mask=None):

@@ -437,7 +437,10 @@ class RelViewEpoch:
         # each chunk
         sizes = [n for pos, ch in ((pos1, ch1), (pos2, ch2))
                  for n in (pos.shape[0], pos.shape[0], ch.numel(), ch.numel())]
-        ph1, pt1, ch1r, ct1r, ph2, pt2, ch2r, ct2r = _split(rv_rows, sizes)
+        # one split: one backward node, where slices would each write a
+        # zero-filled gradient of all the rows
+        ph1, pt1, ch1r, ct1r, ph2, pt2, ch2r, ct2r = torch.split(rv_rows,
+                                                                 sizes)
         loss = torch.zeros((), dtype=rv_rows.dtype, device=rv_rows.device)
         for bs, nc, ph, pr, pt, chr_, ctr, m, (keep_h, keep_t) in (
                 (self.bs1, self.nc1, ph1, prs1, pt1, ch1r, ct1r, m1, aux[0]),

@@ -50,8 +50,10 @@ SPANS = tuple(f"{s}.{part}" for s in STREAMS for part in ("epoch", "step")) \
         "refresh.neighbors", "eval.rank", "setup.triple_filter")
 
 # the counters: with Bloom "drop", the per-slot draws' dropped real slots
-# and all their real slots, once an epoch
-COUNTERS = ("sampling.dropped", "sampling.slots")
+# and all their real slots, once an epoch; the (positive, pool member)
+# pairs of each launch of K3, the chunk-shared loss's kernel
+# (kernels/chunk_loss.py)
+COUNTERS = ("sampling.dropped", "sampling.slots", "loss.chunk_pairs")
 
 
 class _Record:

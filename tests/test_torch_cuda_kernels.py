@@ -8,8 +8,13 @@ import numpy as np
 import pytest
 import torch
 
+from multike_tpu_torch import losses as tl
+from multike_tpu_torch import params as tp
+from multike_tpu_torch.config import Config
 from multike_tpu_torch.kernels import apply_kernel as ak
+from multike_tpu_torch.kernels import chunk_loss as ck
 from multike_tpu_torch.kernels import rank_kernel as rk
+from multike_tpu_torch.train import streams as tst
 
 pytestmark = pytest.mark.cuda
 
@@ -295,3 +300,154 @@ def test_rank_count_plan_choice(dev):
         assert (p["path"], p["ctas_per_sm"], p["waves"]) == ("streamed", 2, 1)
     with pytest.raises(RuntimeError):
         rk.plan(1000, 1000, 353, _path="resident")
+
+
+def _k3_inputs(dev, nc, s, c, d, masks, seed):
+    """Unit rows of one KG's chunks and pools, and with ``masks`` a ragged
+    positive mask (a padded tail in every chunk) and keep flags, made with
+    numpy; card tensors ``(xs, kw)``."""
+    rng = np.random.RandomState(seed)
+
+    def rows(*shape):
+        x = rng.randn(*shape, d).astype(np.float32)
+        return x / np.linalg.norm(x, axis=-1, keepdims=True)
+
+    xs = [rows(nc, s), rows(nc, s), rows(nc, s), rows(nc, c), rows(nc, c)]
+    kw = {}
+    if masks:
+        real = rng.randint(s // 2, s + 1, nc)
+        kw = dict(pos_mask=(np.arange(s)[None] < real[:, None]),
+                  keep_h=rng.rand(nc, s, c) > 0.01,
+                  keep_t=rng.rand(nc, s, c) > 0.01)
+    to = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)  # noqa
+    return [to(x) for x in xs], {k: to(v) for k, v in kw.items()}
+
+
+def _k3_grads(xs, kw, w, scale):
+    """The loss and the five gradients as the main path takes them: the
+    wrapper's autograd Function on leaves, then the backward with the
+    incoming gradient ``scale``."""
+    leaves = [x.detach().requires_grad_() for x in xs]
+    loss = ck.chunk_shared_loss(*leaves, neg_weight=w, **kw)
+    grads = torch.autograd.grad(loss, leaves,
+                                torch.tensor(scale, device=loss.device))
+    return loss.detach(), grads
+
+
+def _assert_k3_near_plain(xs, kw, w, scale, loss, grads):
+    """The loss within rtol 1e-6 and every gradient within 2e-6 of its
+    largest element of the plain version in float64 (gradients scaled by
+    the incoming ``scale``)."""
+    want_loss, want = ck.chunk_shared_loss_plain(
+        *(x.double() for x in xs), neg_weight=w,
+        **{k: v.double() for k, v in kw.items()})
+    torch.testing.assert_close(loss.double(), want_loss, rtol=1e-6, atol=0)
+    for name, x, got, g in zip(("phs", "prs", "pts", "cand_h", "cand_t"),
+                               xs, grads, want):
+        assert got.shape == x.shape, name
+        g = scale * g
+        err = float((got.double() - g).abs().max())
+        assert err <= 2e-6 * float(g.abs().max()), (name, err)
+
+
+@pytest.mark.parametrize("nc,s,c,d,masks", [
+    (10, 4064, 128, 75, False),      # the chunk cell's first KG
+    (10, 3937, 128, 75, True),       # its second, with masks
+    (4, 1000, 128, 384, True),       # the ITC driver's width
+    (2, 70, 200, 13, True),          # a pool over two tiles
+])
+def test_chunk_loss_matches_plain(dev, nc, s, c, d, masks):
+    """K3 through the wrapper the main path calls (its autograd Function,
+    then the backward with an incoming gradient of 0.37) against the plain
+    version in float64 on the card: the loss within rtol 1e-6 and every
+    gradient within 2e-6 of its largest element. The kernel is float32: its
+    distances are rounded once (about 6e-8 of a distance up to 9), and a
+    pool's gradient sums the terms of up to 4,064 positives, in float32
+    within a 64-row tile and in float64 over the tiles; the CPU emulation
+    of the kernel read 1.7e-7 of the largest element, the float32 plain
+    version as much. Two calls, and the loss alone (no gradient), give the
+    same bits; each call launches once."""
+    xs, kw = _k3_inputs(dev, nc, s, c, d, masks, nc * s + d)
+    w, scale = 10 / 256, 0.37
+    runs = []
+    for _ in range(2):
+        n = ck.launches
+        runs.append(_k3_grads(xs, kw, w, scale))
+        assert ck.launches == n + 1
+    with torch.no_grad():
+        loss_only = ck.chunk_shared_loss(*xs, neg_weight=w, **kw)
+    torch.cuda.synchronize()
+    (loss, grads), (loss2, grads2) = runs
+    assert torch.equal(loss, loss2)
+    assert all(torch.equal(a, b) for a, b in zip(grads, grads2))
+    assert torch.equal(loss_only, loss)
+    _assert_k3_near_plain(xs, kw, w, scale, loss, grads)
+
+
+def test_chunk_loss_takes_the_fault_plants_half_view(dev):
+    """The half_batch fault's strided views (``a[:, :S // 2]``) through the
+    loss's autograd: gradients of the views' shape, bitwise the result of
+    contiguous copies, and near the plain version in float64 as in
+    test_chunk_loss_matches_plain."""
+    xs, kw = _k3_inputs(dev, 10, 4064, 128, 75, True, 7)
+    half = [x[:, :2032] if i < 3 else x for i, x in enumerate(xs)]
+    kw = {k: v[:, :2032] for k, v in kw.items()}
+    assert not half[0].is_contiguous()
+    results = []
+    for args in (half, [x.contiguous() for x in half]):
+        leaves = [x.detach().requires_grad_() for x in args]
+        loss = tl.chunk_shared_relation_logistic_loss(*leaves, neg_weight=0.04,
+                                                      **kw)
+        results.append((loss.detach(), torch.autograd.grad(loss, leaves)))
+    (l1, g1), (l2, g2) = results
+    assert torch.equal(l1, l2)
+    for a, b, x in zip(g1, g2, half):
+        assert a.shape == x.shape and torch.equal(a, b)
+    _assert_k3_near_plain(half, kw, 0.04, 1.0, l1, g1)
+
+
+def test_chunk_loss_launches_once_a_kg_per_rel_view_step(dev):
+    """One chunk-shared relation-view step on the card launches K3 once for
+    each KG, on the dense and on the row-sparse path, and matches the CPU
+    step (the plain version): the loss within rtol 1e-5; each table's
+    Adagrad accumulator change, the squared gradient, within 1e-5 of its
+    largest element; each table's change within 1e-5 of the largest
+    gradient element times lr / sqrt(0.1), the most a step moves per unit
+    of gradient from an accumulator of 0.1. The gradients' float32 sums
+    differ in order (the gather's backward, K3's tiles, the apply's)."""
+    E, R, d = 3000, 20, 75
+    rng = np.random.RandomState(3)
+    rng_t = lambda n, lo, hi: torch.as_tensor(np.stack(  # noqa: E731
+        [rng.randint(lo, hi, n), rng.randint(0, R, n),
+         rng.randint(lo, hi, n)], 1))
+    t1, t2 = rng_t(5000, 0, 1500), rng_t(4000, 1500, 3000)
+    for sparse in ("off", "on"):
+        cfg = Config(dim=d, batch_size=2000, neg_triple_num=10,
+                     neg_chunk_size=512, neg_pool_size=128,
+                     learning_rate=0.01, row_sparse_updates=sparse)
+        losses, changes, sq_grads = [], [], []
+        for device in (dev, torch.device("cpu")):
+            init = tp.init_params(cfg, E, R, 2, device="cpu")
+            params = {k: init[k].to(device, copy=True)
+                      for k in ("rv_ent", "rel")}
+            opt = {k: torch.full_like(v, 0.1) for k, v in params.items()}
+            epoch, _, _ = tst.build_rel_view_epoch(
+                cfg, len(t1), len(t2), ((0, 1500), (1500, 3000)))
+            gen = torch.Generator(device=dev).manual_seed(1)
+            batch = [x[0] for x in epoch.draw(gen, t1.to(dev), t2.to(dev))]
+            n = ck.launches
+            losses.append(float(epoch.step(
+                params, opt, *(x.to(device) for x in batch))))
+            assert ck.launches == n + (2 if device.type == "cuda" else 0)
+            changes.append({k: (params[k].cpu() - init[k]).double()
+                            for k in params})
+            sq_grads.append({k: opt[k].cpu().double() - 0.1 for k in opt})
+        assert losses[0] == pytest.approx(losses[1], rel=1e-5)
+        for k, want in sq_grads[1].items():
+            top = float(want.max())
+            assert top > 0, k
+            err = float((sq_grads[0][k] - want).abs().max())
+            assert err <= 1e-5 * top, (sparse, k, "squared gradient", err)
+            err = float((changes[0][k] - changes[1][k]).abs().max())
+            assert err <= 1e-5 * top ** 0.5 * cfg.learning_rate / 0.1 ** 0.5, \
+                (sparse, k, "change", err)

@@ -9,6 +9,8 @@
   name, their starts and ends within 0.2 ms of each other (the shared
   clock), self times partition the epoch span, and the drop counter equals
   the epoch's own count.
+* On the card, the chunk-shared loss's kernel counts its pairs under a
+  session only (skipped without a card).
 * The record restarts with a new session and at each ``trace``, which
   writes it beside the Chrome trace.
 """
@@ -174,6 +176,35 @@ def test_session_gives_the_span_tree_on_the_profiler_clock(scheme, kw):
         assert 0 < rec["counters"]["sampling.dropped"] < epoch.slots
     else:
         assert rec["counters"] == {}
+
+
+@pytest.mark.cuda
+def test_chunk_pairs_counted_under_a_session_only():
+    """Each launch of K3, the chunk-shared loss's kernel, adds its pairs
+    (NC x S x 2C) to loss.chunk_pairs while a profiler session runs, and
+    nothing without one: a chunk-shared epoch on the card counts every
+    step's pairs of both KGs. (The CPU's plain version counts nothing: the
+    chunk_shared case above.)"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the counter counts the kernel's "
+                    "launches, and the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    t1, t2, _, _ = _data()
+    cfg = Config(**CFG, neg_scheme="chunk_shared", row_sparse_updates="off")
+    params = tp.init_params(cfg, E, R, 2, device=dev)
+    opt = tst.init_stream_opt_states(cfg, params)["rel_view"]
+    epoch, steps, _ = tst.build_rel_view_epoch(cfg, len(t1), len(t2), RANGES)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t1, t2 = t1.to(dev), t2.to(dev)
+    epoch(params, opt, gen, t1, t2)
+    assert profiling.drain() == {"spans": [], "counters": {}, "by_name": {}}
+    with profile(activities=[ProfilerActivity.CPU]):
+        epoch(params, opt, gen, t1, t2)
+    rec = profiling.drain()
+    pairs = steps * (epoch.nc1 * epoch.s1 + epoch.nc2 * epoch.s2) \
+        * 2 * epoch.pool
+    assert rec["counters"] == {"loss.chunk_pairs": pairs}
+    assert rec["by_name"]["rel_view.step"]["count"] == steps
 
 
 def test_resample_draws_are_spans_of_the_epoch():
