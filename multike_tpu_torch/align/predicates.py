@@ -25,6 +25,7 @@ from multike_tpu_torch.config import Config
 from multike_tpu_torch.data.kg import KGs
 from multike_tpu_torch.data.readers import read_predicate_local_names
 from multike_tpu_torch.utils.native import levenshtein_ratio_matrix
+from multike_tpu_torch.utils.profiling import span
 
 UNALIGNED_WEIGHT = 0.2
 
@@ -52,23 +53,24 @@ def generate_sup_predicate_triples(predicate_links, triples1, triples2):
 
 
 def add_weights(predicate_links, triples1, triples2, min_w_before):
-    """Every local triple -> (s, p, o, weight)."""
+    """Every local triple -> (s, p, o, weight): sorted lists and sets.
+
+    Each triple's row is made in one pass, the zoomed weight computed once
+    a predicate; sorting the rows of a sorted list (the KGs' local lists)
+    is one linear pass."""
     dic1, dic2 = link2dic(predicate_links)
 
     def weight_triples(triples, dic):
-        out = set()
-        for (s, p, o) in triples:
-            if p in dic:
-                out.add((s, p, o, zoom_weight(dic[p][1], min_w_before)))
-            else:
-                out.add((s, p, o, UNALIGNED_WEIGHT))
-        return out
+        zoomed = {p: zoom_weight(w, min_w_before) for p, (_, w) in dic.items()}
+        return [(s, p, o, zoomed.get(p, UNALIGNED_WEIGHT))
+                for (s, p, o) in triples]
 
-    w1 = weight_triples(triples1, dic1)
-    w2 = weight_triples(triples2, dic2)
+    rows1 = weight_triples(triples1, dic1)
+    rows2 = weight_triples(triples2, dic2)
+    w1, w2 = set(rows1), set(rows2)
     assert len(triples1) == len(w1)
     assert len(triples2) == len(w2)
-    return sorted(w1), sorted(w2), w1, w2
+    return sorted(rows1), sorted(rows2), w1, w2
 
 
 def init_predicate_alignment(name_dict_1: Dict[str, str],
@@ -207,31 +209,34 @@ class PredicateAlignModel:
     def update_predicate_alignment(self, embed: np.ndarray,
                                    predicate_type: str = "relation",
                                    w: float = 0.7):
-        """Blend the name-seeded similarities with embedding similarities."""
-        if predicate_type == "relation":
-            id_dict1 = self.kgs.kg1.relations_id_dict
-            id_dict2 = self.kgs.kg2.relations_id_dict
-            alignment_set_init = self.relation_alignment_set_init
-        else:
-            id_dict1 = self.kgs.kg1.attributes_id_dict
-            id_dict2 = self.kgs.kg2.attributes_id_dict
-            alignment_set_init = self.attribute_alignment_set_init
+        """Blend the name-seeded similarities with embedding similarities
+        (span ``refresh.predicates``)."""
+        with span("refresh.predicates"):
+            if predicate_type == "relation":
+                id_dict1 = self.kgs.kg1.relations_id_dict
+                id_dict2 = self.kgs.kg2.relations_id_dict
+                alignment_set_init = self.relation_alignment_set_init
+            else:
+                id_dict1 = self.kgs.kg1.attributes_id_dict
+                id_dict2 = self.kgs.kg2.attributes_id_dict
+                alignment_set_init = self.attribute_alignment_set_init
 
-        latent = find_predicate_alignment_by_embedding(
-            np.asarray(embed), list(id_dict1.values()), list(id_dict2.values()))
+            latent = find_predicate_alignment_by_embedding(
+                np.asarray(embed), list(id_dict1.values()),
+                list(id_dict2.values()))
 
-        alignment_set = set()
-        for (p1, p2, sim_init) in alignment_set_init:
-            pid1, pid2 = id_dict1[p1], id_dict2[p2]
-            s = sim_init
-            if (pid1, pid2) in latent:
-                s = w * s + (1 - w) * latent[(pid1, pid2)]
-            if s > self.cfg.predicate_soft_sim:
-                alignment_set.add((p1, p2, s))
+            alignment_set = set()
+            for (p1, p2, sim_init) in alignment_set_init:
+                pid1, pid2 = id_dict1[p1], id_dict2[p2]
+                s = sim_init
+                if (pid1, pid2) in latent:
+                    s = w * s + (1 - w) * latent[(pid1, pid2)]
+                if s > self.cfg.predicate_soft_sim:
+                    alignment_set.add((p1, p2, s))
 
-        if predicate_type == "relation":
-            self.relation_alignment_set = alignment_set
-            self.update_relation_triples(alignment_set)
-        else:
-            self.attribute_alignment_set = alignment_set
-            self.update_attribute_triples(alignment_set)
+            if predicate_type == "relation":
+                self.relation_alignment_set = alignment_set
+                self.update_relation_triples(alignment_set)
+            else:
+                self.attribute_alignment_set = alignment_set
+                self.update_attribute_triples(alignment_set)

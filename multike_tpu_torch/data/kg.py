@@ -9,6 +9,7 @@ on-device uniform negative sampling and edge partitioning.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional, Set, Tuple
 
 import numpy as np
@@ -40,7 +41,19 @@ class KG:
     Attribute triples may carry string values before literal re-indexing and
     int literal-ids after ``set_attributes`` is re-run by the DataModel
     (data_model.py:141-144).
+
+    The sorted lists and the per-entity dicts are made at their first read
+    and kept until the triples they come from change: at DWY100K's size
+    each takes seconds, and the KGs that only carry URIs to the id
+    assignment (``KGs``) never read them.
     """
+
+    _RELATION_VIEWS = ("relation_triples_list", "local_relation_triples_list",
+                       "entities_list", "relations_list", "rt_dict",
+                       "hr_dict", "entity_relations_dict")
+    _ATTRIBUTE_VIEWS = ("attribute_triples_list",
+                        "local_attribute_triples_list", "attributes_list",
+                        "av_dict", "entity_attributes_dict")
 
     def __init__(self, relation_triples, attribute_triples, verbose: bool = False):
         self.entities_id_dict: Optional[Dict[str, int]] = None
@@ -62,62 +75,98 @@ class KG:
                       self.attributes_num, self.relation_triples_num,
                       self.attribute_triples_num))
 
+    def _forget(self, names):
+        for name in names:
+            self.__dict__.pop(name, None)
+
     # --- relation side -------------------------------------------------
     def set_relations(self, relation_triples):
         self.relation_triples_set = set(relation_triples)
-        self.relation_triples_list = sorted(self.relation_triples_set)
         # 'local' = without swapped sup triples (base/kg.py:59-60)
         self.local_relation_triples_set = set(self.relation_triples_set)
-        self.local_relation_triples_list = sorted(self.local_relation_triples_set)
 
         heads, relations, tails = parse_triples(self.relation_triples_set)
         self.entities_set = heads | tails
         self.relations_set = relations
-        self.entities_list = sorted(self.entities_set)
-        self.relations_list = sorted(self.relations_set)
         self.entities_num = len(self.entities_set)
         self.relations_num = len(self.relations_set)
         self.relation_triples_num = len(self.relation_triples_set)
         self.local_relation_triples_num = len(self.local_relation_triples_set)
-        self._generate_relation_triple_dict()
-        self._parse_relations()
+        self._forget(self._RELATION_VIEWS)
 
     def set_attributes(self, attribute_triples):
         self.attribute_triples_set = set(attribute_triples)
-        self.attribute_triples_list = sorted(self.attribute_triples_set)
         self.local_attribute_triples_set = set(self.attribute_triples_set)
-        self.local_attribute_triples_list = sorted(self.local_attribute_triples_set)
 
         _, attributes, _ = parse_triples(self.attribute_triples_set)
         self.attributes_set = attributes
-        self.attributes_list = sorted(self.attributes_set)
         self.attributes_num = len(self.attributes_set)
         self.attribute_triples_num = len(self.attribute_triples_set)
         self.local_attribute_triples_num = len(self.local_attribute_triples_set)
-        self._generate_attribute_triple_dict()
-        self._parse_attributes()
+        self._forget(self._ATTRIBUTE_VIEWS)
 
-    def _generate_relation_triple_dict(self):
-        self.rt_dict: Dict[int, Set[Tuple]] = {}
-        self.hr_dict: Dict[int, Set[Tuple]] = {}
+    @functools.cached_property
+    def relation_triples_list(self) -> List[Tuple]:
+        return sorted(self.relation_triples_set)
+
+    @functools.cached_property
+    def local_relation_triples_list(self) -> List[Tuple]:
+        return sorted(self.local_relation_triples_set)
+
+    @functools.cached_property
+    def entities_list(self) -> List:
+        return sorted(self.entities_set)
+
+    @functools.cached_property
+    def relations_list(self) -> List:
+        return sorted(self.relations_set)
+
+    @functools.cached_property
+    def attribute_triples_list(self) -> List[Tuple]:
+        return sorted(self.attribute_triples_set)
+
+    @functools.cached_property
+    def local_attribute_triples_list(self) -> List[Tuple]:
+        return sorted(self.local_attribute_triples_set)
+
+    @functools.cached_property
+    def attributes_list(self) -> List:
+        return sorted(self.attributes_set)
+
+    @functools.cached_property
+    def rt_dict(self) -> Dict[int, Set[Tuple]]:
+        out: Dict[int, Set[Tuple]] = {}
         for h, r, t in self.local_relation_triples_list:
-            self.rt_dict.setdefault(h, set()).add((r, t))
-            self.hr_dict.setdefault(t, set()).add((h, r))
+            out.setdefault(h, set()).add((r, t))
+        return out
 
-    def _generate_attribute_triple_dict(self):
-        self.av_dict: Dict[int, Set[Tuple]] = {}
+    @functools.cached_property
+    def hr_dict(self) -> Dict[int, Set[Tuple]]:
+        out: Dict[int, Set[Tuple]] = {}
+        for h, r, t in self.local_relation_triples_list:
+            out.setdefault(t, set()).add((h, r))
+        return out
+
+    @functools.cached_property
+    def av_dict(self) -> Dict[int, Set[Tuple]]:
+        out: Dict[int, Set[Tuple]] = {}
         for h, a, v in self.local_attribute_triples_list:
-            self.av_dict.setdefault(h, set()).add((a, v))
+            out.setdefault(h, set()).add((a, v))
+        return out
 
-    def _parse_relations(self):
-        self.entity_relations_dict: Dict[int, Set] = {}
+    @functools.cached_property
+    def entity_relations_dict(self) -> Dict[int, Set]:
+        out: Dict[int, Set] = {}
         for ent, rel, _ in self.local_relation_triples_set:
-            self.entity_relations_dict.setdefault(ent, set()).add(rel)
+            out.setdefault(ent, set()).add(rel)
+        return out
 
-    def _parse_attributes(self):
-        self.entity_attributes_dict: Dict[int, Set] = {}
+    @functools.cached_property
+    def entity_attributes_dict(self) -> Dict[int, Set]:
+        out: Dict[int, Set] = {}
         for ent, attr, _ in self.local_attribute_triples_set:
-            self.entity_attributes_dict.setdefault(ent, set()).add(attr)
+            out.setdefault(ent, set()).add(attr)
+        return out
 
     def set_id_dict(self, entities_id_dict, relations_id_dict, attributes_id_dict):
         self.entities_id_dict = entities_id_dict
@@ -128,15 +177,15 @@ class KG:
         self.sup_relation_triples_set = set(sup_triples)
         self.sup_relation_triples_list = sorted(self.sup_relation_triples_set)
         self.relation_triples_set |= self.sup_relation_triples_set
-        self.relation_triples_list = sorted(self.relation_triples_set)
-        self.relation_triples_num = len(self.relation_triples_list)
+        self.relation_triples_num = len(self.relation_triples_set)
+        self._forget(("relation_triples_list",))
 
     def add_sup_attribute_triples(self, sup_triples):
         self.sup_attribute_triples_set = set(sup_triples)
         self.sup_attribute_triples_list = sorted(self.sup_attribute_triples_set)
         self.attribute_triples_set |= self.sup_attribute_triples_set
-        self.attribute_triples_list = sorted(self.attribute_triples_set)
-        self.attribute_triples_num = len(self.attribute_triples_list)
+        self.attribute_triples_num = len(self.attribute_triples_set)
+        self._forget(("attribute_triples_list",))
 
     # --- device-side views --------------------------------------------
     @property

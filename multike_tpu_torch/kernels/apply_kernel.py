@@ -14,7 +14,9 @@ plain version (:func:`dedup_rows`, a stable sort and a sequential
 ``index_add_``, then :func:`fused_row_adagrad_plain`); on a CUDA device it
 launches the kernel (or raises), which sums each row's occurrences in the
 same order and so gives the same bits. ``launches`` counts the kernel's
-launches, one per call.
+launches, one per call. While a profiler session runs, each call adds its
+ids to the tracer's counter ``apply.ids`` and the distinct rows they touch
+to ``apply.unique`` (on the card a device scalar, the kernel's own count).
 
 The kernel keeps int32 scratch per (device, stream), grown to the largest
 table and step seen: two words for each table row, of which the counters
@@ -26,9 +28,11 @@ from __future__ import annotations
 import torch
 
 from multike_tpu_torch.kernels import _build
+from multike_tpu_torch.utils.profiling import count, recording
 
 launches = 0
 _COUNTERS = 8            # >= kNumCounters in csrc/apply_kernel.cu
+_SLOTS = 3               # kSlots: the rows the last call touched
 _scratch = {}            # (device index, stream) -> (counts, row_start, work)
 
 
@@ -128,6 +132,10 @@ def row_adagrad(param, acc, ids, g_rows, lr: float, eps: float = 1e-7,
     global launches
     _check(param, acc, ids, g_rows)
     if param.device.type == "cpu":
+        if recording():
+            inside = (ids >= row_offset) & (ids < row_offset + param.shape[0])
+            count("apply.ids", ids.shape[0])
+            count("apply.unique", torch.unique(ids[inside]).numel())
         return row_adagrad_plain(param, acc, ids, g_rows, lr, eps, row_offset)
     if param.device.type != "cuda":
         raise ValueError(f"unsupported device {param.device}")
@@ -155,4 +163,8 @@ def row_adagrad(param, acc, ids, g_rows, lr: float, eps: float = 1e-7,
         _scratch.pop((param.device.index, stream), None)
     _build.check(err, "row_adagrad")
     launches += 1
+    if recording():
+        # a copy: the next call overwrites the kernel's count
+        count("apply.ids", n)
+        count("apply.unique", counts[_SLOTS].clone())
     return param, acc

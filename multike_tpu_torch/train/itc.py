@@ -13,9 +13,12 @@ trains to ``max_epoch``).
 """
 from __future__ import annotations
 
+import functools
+
 from multike_tpu_torch.eval import views as vw
 from multike_tpu_torch.eval.evaluation import early_stop
 from multike_tpu_torch.train.trainer import MultiKETrainer
+from multike_tpu_torch.utils.profiling import span
 
 
 class MultiKE_ITC(MultiKETrainer):
@@ -36,42 +39,72 @@ class MultiKE_ITC(MultiKETrainer):
                 self._log("interrupted: wrote itc_interrupt checkpoint")
             raise
 
+    @functools.cached_property
+    def _fixed_lists(self):
+        """The lists a run trains on that no refresh changes: the swapped
+        supervision relation and attribute triples, and every entity. Made
+        once, so the trainer's device arrays, cached on a list's identity,
+        are made once too."""
+        kg1, kg2 = self.kgs.kg1, self.kgs.kg2
+        return (kg1.sup_relation_triples_list + kg2.sup_relation_triples_list,
+                kg1.sup_attribute_triples_list
+                + kg2.sup_attribute_triples_list,
+                kg1.entities_list + kg2.entities_list)
+
+    def train_streams_1epo(self, i: int, cross_kg_relation_inference,
+                           cross_kg_attribute_inference) -> dict:
+        """The seven streams of driver epoch ``i``, in the reference's
+        order (span ``itc.epoch``): the relation view, cross-KG entity
+        inference in it and, after ``start_predicate_soft_alignment``,
+        cross-KG relation inference on ``cross_kg_relation_inference``;
+        the attribute view, cross-KG entity inference in it and, after the
+        same epoch, cross-KG attribute inference on
+        ``cross_kg_attribute_inference``; common-space learning. Returns
+        each stream's average loss, by stream name. Pass the same list
+        objects from epoch to epoch until a refresh replaces them: the
+        trainer caches their device arrays on identity."""
+        rel_triples, attr_triples, entities = self._fixed_lists
+        soft = i > self.cfg.start_predicate_soft_alignment
+        losses = {}
+        with span("itc.epoch"):
+            losses["rel_view"] = self.train_relation_view_1epo(i)
+            losses["ckge_rel"] = \
+                self.train_cross_kg_entity_inference_relation_view_1epo(
+                    i, rel_triples)
+            if soft:
+                losses["ckgp_rel"] = \
+                    self.train_cross_kg_relation_inference_1epo(
+                        i, cross_kg_relation_inference)
+            losses["attr_view"] = self.train_attribute_view_1epo(i)
+            losses["ckge_attr"] = \
+                self.train_cross_kg_entity_inference_attribute_view_1epo(
+                    i, attr_triples)
+            if soft:
+                losses["ckga_attr"] = \
+                    self.train_cross_kg_attribute_inference_1epo(
+                        i, cross_kg_attribute_inference)
+            losses["common_space"] = self.train_common_space_learning_1epo(
+                i, entities)
+        return losses
+
     def _run(self):
         cfg = self.cfg
-        kgs = self.kgs
         flag1 = flag2 = -1
         should_stop = False
 
-        cross_kg_relation_triples = (kgs.kg1.sup_relation_triples_list
-                                     + kgs.kg2.sup_relation_triples_list)
-        cross_kg_attr_entity_triples = (kgs.kg1.sup_attribute_triples_list
-                                        + kgs.kg2.sup_attribute_triples_list)
         pam = self.predicate_align_model
         cross_kg_relation_inference = (pam.sup_relation_alignment_triples1
                                        + pam.sup_relation_alignment_triples2)
         cross_kg_attribute_inference = (pam.sup_attribute_alignment_triples1
                                         + pam.sup_attribute_alignment_triples2)
-        entity_list = kgs.kg1.entities_list + kgs.kg2.entities_list
 
         start_epoch = self.try_resume("itc")
         if start_epoch == 0:
             vw.test(self, embed_choice="nv")
         for i in range(start_epoch + 1, cfg.max_epoch + 1):
             self._log(f"epoch {i}:")
-            self.train_relation_view_1epo(i)
-            self.train_cross_kg_entity_inference_relation_view_1epo(
-                i, cross_kg_relation_triples)
-            if i > cfg.start_predicate_soft_alignment:
-                self.train_cross_kg_relation_inference_1epo(
-                    i, cross_kg_relation_inference)
-
-            self.train_attribute_view_1epo(i)
-            self.train_cross_kg_entity_inference_attribute_view_1epo(
-                i, cross_kg_attr_entity_triples)
-            if i > cfg.start_predicate_soft_alignment:
-                self.train_cross_kg_attribute_inference_1epo(
-                    i, cross_kg_attribute_inference)
-            self.train_common_space_learning_1epo(i, entity_list)
+            self.train_streams_1epo(i, cross_kg_relation_inference,
+                                    cross_kg_attribute_inference)
 
             if i >= cfg.start_valid and i % cfg.eval_freq == 0:
                 mrr_rv = vw.valid(self, embed_choice="rv")

@@ -115,8 +115,9 @@ class MultiKETrainer:
             if hasattr(data, attr)}
 
         self.ranges = kgs.entity_id_ranges()
-        rt1 = triples_to_array(kgs.kg1.local_relation_triples_set)
-        rt2 = triples_to_array(kgs.kg2.local_relation_triples_set)
+        # the sorted lists: sorting them again is one linear pass
+        rt1 = triples_to_array(kgs.kg1.local_relation_triples_list)
+        rt2 = triples_to_array(kgs.kg2.local_relation_triples_list)
         self.rel_triples1 = torch.as_tensor(rt1, dtype=torch.long,
                                             device=self.device)
         self.rel_triples2 = torch.as_tensor(rt2, dtype=torch.long,

@@ -11,6 +11,8 @@
   * ``count(name, n)``: adds ``n`` to a counter while a session runs. ``n``
     may be a device tensor: it is kept as it is and read to the host only
     when the record is read;
+  * ``recording()``: whether a session runs, for a counter whose value
+    costs work to make;
   * ``drain()``: the record (spans, counters, and each span name's count,
     total and self time), cleared;
   * ``SPANS``: every span name the program emits;
@@ -43,17 +45,24 @@ SPANS = tuple(f"{s}.{part}" for s in STREAMS for part in ("epoch", "step")) \
         # inside rel_view.epoch: the epoch's draws (the in-step resample
         # path's too)
         "rel_view.draw", "draw.positives", "draw.negatives", "draw.bloom",
-        # inside every <stream>.step
+        # inside every <stream>.step; step.conv (the CNN scorer) inside the
+        # attribute streams' step.forward
         "step.gather", "step.forward", "step.backward", "step.allreduce",
-        "step.apply",
+        "step.apply", "step.conv",
+        # around one ITC driver epoch's streams (train/itc.py)
+        "itc.epoch",
         # once a refresh, an evaluation, a trainer
-        "refresh.neighbors", "eval.rank", "setup.triple_filter")
+        "refresh.neighbors", "refresh.predicates", "eval.rank",
+        "setup.triple_filter")
 
 # the counters: with Bloom "drop", the per-slot draws' dropped real slots
 # and all their real slots, once an epoch; the (positive, pool member)
 # pairs of each launch of K3, the chunk-shared loss's kernel
-# (kernels/chunk_loss.py)
-COUNTERS = ("sampling.dropped", "sampling.slots", "loss.chunk_pairs")
+# (kernels/chunk_loss.py); the rows of each call of the CNN scorer
+# (views/attr_conv.py); the ids of each call of K1, the row-sparse apply
+# (kernels/apply_kernel.py), and the distinct rows they touch
+COUNTERS = ("sampling.dropped", "sampling.slots", "loss.chunk_pairs",
+            "conv.rows", "apply.ids", "apply.unique")
 
 
 class _Record:
@@ -112,6 +121,12 @@ class _Span:
 def span(name: str):
     """A span of the program's work named ``name`` (one of ``SPANS``)."""
     return _Span(name) if _session() else _OFF
+
+
+def recording() -> bool:
+    """Whether a profiler session runs, so that :func:`count` keeps what it
+    is given."""
+    return _session()
 
 
 def count(name: str, n) -> None:

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from multike_tpu_torch.params import l2_normalize
+from multike_tpu_torch.utils.profiling import count, span
 
 BN_EPS = 1e-3  # tf.layers.batch_normalization default epsilon
 SAME_PAD = (1, 2, 0, 1)  # F.pad order: (left, right, top, bottom)
@@ -71,7 +72,10 @@ def conv_score(conv_params, attr_hs, attr_as, attr_vs, layer_num: int = 2,
     normalization of step 5, so they do not change the real rows' values.
     ``batch_sum``: with the batch split over ranks, the differentiable sum
     over them that makes step 5's norm the whole batch's
-    (``params.l2_normalize``)."""
-    return conv_stages(conv_params, attr_hs, attr_as, attr_vs,
-                       layer_num=layer_num, mask=mask,
-                       batch_sum=batch_sum)["score"]
+    (``params.l2_normalize``). Its span is ``step.conv``, and it adds its
+    rows to the tracer's counter ``conv.rows``."""
+    with span("step.conv"):
+        count("conv.rows", attr_hs.shape[0])
+        return conv_stages(conv_params, attr_hs, attr_as, attr_vs,
+                           layer_num=layer_num, mask=mask,
+                           batch_sum=batch_sum)["score"]

@@ -82,3 +82,55 @@ def test_read_kgs_from_folder_matches(both_folders, ordered):
         assert getattr(j, name) == getattr(t, name), name
     if not ordered:
         assert j.entity_id_ranges() == t.entity_id_ranges()
+
+
+KG_VIEWS = ("relation_triples_list", "local_relation_triples_list",
+            "entities_list", "relations_list", "attribute_triples_list",
+            "local_attribute_triples_list", "attributes_list", "rt_dict",
+            "hr_dict", "av_dict", "entity_relations_dict",
+            "entity_attributes_dict", "relation_triples_num",
+            "attribute_triples_num", "local_relation_triples_num",
+            "local_attribute_triples_num", "entities_num")
+
+
+def test_kg_views_made_at_first_read_equal_the_eager_ones(both_folders):
+    """The port's KG makes its sorted lists and per-entity dicts at their
+    first read (at DWY100K's size each takes seconds, and the URI-level
+    KGs never read them): after the swap they equal the JAX package's,
+    which makes them at once, and a KG that only carries URIs has made
+    none."""
+    jf, _ = both_folders
+    j = jkg.read_kgs_from_folder(jf, "631/", "swapping", False)
+    t = tkg.read_kgs_from_folder(jf, "631/", "swapping", False)
+    for uri_kg in (t.uri_kg1, t.uri_kg2):
+        assert not set(tkg.KG._RELATION_VIEWS + tkg.KG._ATTRIBUTE_VIEWS) \
+            & set(vars(uri_kg))
+    for side in ("kg1", "kg2"):
+        a, b = getattr(j, side), getattr(t, side)
+        for name in KG_VIEWS:
+            assert getattr(a, name) == getattr(b, name), (side, name)
+
+
+def test_kg_views_follow_the_triples():
+    """Setting the attributes again (as the DataModel does when it
+    re-indexes values) and adding supervision triples make the views
+    anew."""
+    kg = tkg.KG({(1, "r", 2), (2, "r", 3)}, {(1, "a", "x"), (3, "b", "y")})
+    assert kg.av_dict == {1: {("a", "x")}, 3: {("b", "y")}}
+    assert kg.relation_triples_list == [(1, "r", 2), (2, "r", 3)]
+    kg.set_attributes({(2, "a", 7)})
+    assert kg.av_dict == {2: {("a", 7)}}
+    assert kg.attribute_triples_list == [(2, "a", 7)]
+    assert kg.attributes_list == ["a"]
+    kg.add_sup_attribute_triples({(1, "a", 7)})
+    assert kg.attribute_triples_list == [(1, "a", 7), (2, "a", 7)]
+    assert kg.local_attribute_triples_list == [(2, "a", 7)]
+    kg.add_sup_relation_triples({(4, "r", 2)})
+    assert kg.relation_triples_list == [(1, "r", 2), (2, "r", 3),
+                                        (4, "r", 2)]
+    assert kg.relation_triples_num == 3
+    assert kg.local_relation_triples_list == [(1, "r", 2), (2, "r", 3)]
+    kg.set_relations({(5, "q", 6)})
+    assert kg.rt_dict == {5: {("q", 6)}} and kg.hr_dict == {6: {(5, "q")}}
+    assert kg.entities_list == [5, 6] and kg.relations_list == ["q"]
+    assert kg.entity_relations_dict == {5: {"q"}}

@@ -225,3 +225,48 @@ def test_early_stop_gate(itc, monkeypatch, enable, metric, evals):
     cfg, data, _ = itc
     assert _early_stop_evals(cfg, data, monkeypatch, enable_early_stop=enable,
                              stop_metric=metric) == evals
+
+
+def test_driver_epoch_is_one_call(itc, monkeypatch):
+    """``_run`` trains every epoch through ``train_streams_1epo``. The call
+    runs five streams up to ``start_predicate_soft_alignment`` and all
+    seven after it, inside one ``itc.epoch`` span, and the supervision
+    lists it trains on keep their identity from call to call, so the
+    trainer makes their device arrays once."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from multike_tpu_torch.utils import profiling
+
+    cfg, data, _ = itc
+    model = _model(cfg, data, checkpoint_dir="", max_epoch=3,
+                   start_predicate_soft_alignment=2)
+    calls = []
+    epoch = MultiKE_ITC.train_streams_1epo
+    monkeypatch.setattr(MultiKE_ITC, "train_streams_1epo",
+                        lambda self, i, *a: calls.append(i)
+                        or epoch(self, i, *a))
+    model.run()
+    assert calls == [1, 2, 3]
+
+    pam = model.predicate_align_model
+    rel = pam.sup_relation_alignment_triples1 \
+        + pam.sup_relation_alignment_triples2
+    attr = pam.sup_attribute_alignment_triples1 \
+        + pam.sup_attribute_alignment_triples2
+    assert set(epoch(model, 2, rel, attr)) == {
+        "rel_view", "ckge_rel", "attr_view", "ckge_attr", "common_space"}
+    arrays = {k: v[2] for k, v in model._arr_cache.items()
+              if k in ("ckge_rel", "ckge_attr", "common_space_ents")}
+    assert len(arrays) == 3
+    profiling.drain()
+    with profile(activities=[ProfilerActivity.CPU]):
+        losses = epoch(model, 3, rel, attr)
+    spans = profiling.drain()["spans"]
+    assert set(losses) == {"rel_view", "ckge_rel", "ckgp_rel", "attr_view",
+                           "ckge_attr", "ckga_attr", "common_space"}
+    assert all(np.isfinite(v) for v in losses.values())
+    top = [i for i, (n, p, _, _) in enumerate(spans) if p < 0]
+    assert [spans[i][0] for i in top] == ["itc.epoch"]
+    assert sorted(n for n, p, _, _ in spans if p == top[0]) == sorted(
+        f"{s}.epoch" for s in losses)
+    assert all(model._arr_cache[k][2] is v for k, v in arrays.items())

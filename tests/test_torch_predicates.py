@@ -82,3 +82,35 @@ def test_predicate_alignment_equal_jax(pams):
         ref.update_predicate_alignment(emb, predicate_type=ptype)
         _assert_same(port, ref)
     assert port.version == 4
+
+
+def _add_weights_by_sets(predicate_links, triples1, triples2, min_w_before):
+    """``add_weights`` as it was written before it made each list in one
+    pass: a set of weighted rows a KG, then sorted."""
+    dic1, dic2 = tpred.link2dic(predicate_links)
+
+    def weight_triples(triples, dic):
+        out = set()
+        for (s, p, o) in triples:
+            if p in dic:
+                out.add((s, p, o, tpred.zoom_weight(dic[p][1], min_w_before)))
+            else:
+                out.add((s, p, o, tpred.UNALIGNED_WEIGHT))
+        return out
+
+    w1 = weight_triples(triples1, dic1)
+    w2 = weight_triples(triples2, dic2)
+    return sorted(w1), sorted(w2), w1, w2
+
+
+@pytest.mark.parametrize("presorted", [True, False])
+def test_add_weights_equals_the_set_version(presorted):
+    rng = np.random.RandomState(2)
+    trip = [sorted({tuple(int(x) for x in row) for row in
+                    rng.randint(0, n, size=(3000, 3))}) for n in (40, 50)]
+    if not presorted:
+        for t in trip:
+            rng.shuffle(t)
+    links = {(1, 41, 0.95), (3, 45, 0.875), (7, 49, 0.99)}
+    assert tpred.add_weights(links, *trip, 0.85) == \
+        _add_weights_by_sets(links, *trip, 0.85)

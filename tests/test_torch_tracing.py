@@ -258,3 +258,45 @@ def test_every_stream_has_its_spans():
     assert len(set(profiling.SPANS)) == len(profiling.SPANS)
     for s in tst.STREAM_SPEC:
         assert {f"{s}.epoch", f"{s}.step"} <= set(profiling.SPANS)
+
+
+def _k1_case(dev):
+    from multike_tpu_torch.kernels.apply_kernel import row_adagrad
+
+    param = torch.zeros(10, 4, device=dev)
+    acc = torch.full_like(param, 0.1)
+    # 12 lies outside the 10-row table and touches nothing
+    ids = torch.tensor([1, 3, 3, 12, 1, 0], device=dev)
+    g = torch.ones(6, 4, device=dev)
+    return lambda: row_adagrad(param, acc, ids, g, 0.1)
+
+
+def test_k1_counts_its_ids_and_rows_under_a_session_only():
+    """Each call of K1 (here its CPU plain version) adds its ids to
+    ``apply.ids`` and the distinct rows they touch to ``apply.unique``
+    while a profiler session runs, and nothing without one."""
+    call = _k1_case("cpu")
+    call()
+    assert profiling.drain()["counters"] == {}
+    with profile(activities=[ProfilerActivity.CPU]):
+        call()
+        call()
+    assert profiling.drain()["counters"] == {"apply.ids": 12,
+                                             "apply.unique": 6}
+
+
+@pytest.mark.cuda
+def test_k1_counts_its_rows_on_the_card():
+    """On the card ``apply.unique`` is the kernel's own count of the rows
+    it touched, copied once a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the count is the kernel's, which "
+                    "has no CPU mode")
+    call = _k1_case(torch.device("cuda"))
+    call()
+    assert profiling.drain()["counters"] == {}
+    with profile(activities=[ProfilerActivity.CPU]):
+        call()
+        call()
+    assert profiling.drain()["counters"] == {"apply.ids": 12,
+                                             "apply.unique": 6}
