@@ -9,6 +9,7 @@
                                         # sparse_adagrad.row_apply timed at
                                         # phase 2's steps
     python3 chip_smoke.py --k3          # phases 1 and 2b only
+    python3 chip_smoke.py --k4          # phases 1 and 2c only
 
 (``--mesh-rank TASK SPEC`` is how phase 8 starts its rank processes.)
 
@@ -34,6 +35,17 @@ Phases, each of which must pass or the script exits non-zero:
      (each gradient) of its plain version in float64 on the card, bitwise
      from call to call, timed (its two kernels apart, by the profiler)
      beside its FLOP bound and its plain version in float32;
+  2c. K4, the CNN scorer with its closed-form backward, at the ITC cell's
+     CNN step (5,000 rows, d = 75) and at d = 384, through the streams'
+     ``conv_score`` and autograd's backward (a mask with a padded tail):
+     each output within 2e-5 of its largest element of its plain version
+     in float64 on the card, or within twice the error of the plain
+     version in float32 and of the eager ``conv_stages`` with autograd
+     (cuDNN's convolutions), bitwise from call to call, timed (the device
+     time of a call, forward alone and with the backward: its six kernels,
+     each also apart, and the fills and copy of its small buffers) beside
+     its FLOP bound and the eager ``conv_stages`` with autograd; then
+     compared at 4,097 rows and at one row;
   3. K2, the fused rank count, against its plain version at 35K x 70K,
      d=75, and at the main path's own 6K x 6K and 2K x 8K, then in CSLS
      form; at each shape it is timed beside the plain version and
@@ -264,12 +276,15 @@ def phase_build():
             elif name and (m := re.search(
                     r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)):
                 kernels[name]["spill_bytes"] = int(m[1]) + int(m[2])
+                if (m := re.search(r"(\d+) bytes stack frame", ln)):
+                    kernels[name]["stack_bytes"] = int(m[1])
             elif name and (m := re.search(r"Used (\d+) registers", ln)):
                 kernels[name]["registers"] = int(m[1])
     check(kernels, "the nvcc log names no kernel")
     for name, info in kernels.items():
         log(f"[build]   {name[:72]}: {info.get('registers')} registers, "
-            f"{info.get('spill_bytes')} spill bytes")
+            f"{info.get('spill_bytes')} spill bytes, "
+            f"{info.get('stack_bytes')} stack bytes")
         check(info.get("spill_bytes") == 0, f"{name} spills to local memory")
 
 
@@ -581,6 +596,190 @@ def phase_chunk_loss(dev, peaks):
                 wide_step=wide)
 
 
+# K4's shapes: a CNN step of the ITC cell itc-dwy100k (attribute_batch_size
+# 5,000 rows, d = 75) and the same rows at phase 9's width
+K4_STEPS = ((5000, 75), (5000, 384))
+K4_PASSES = "conv_rows|conv_out|conv_t|conv_bwd_rows|conv_wgrad|conv_sum"
+
+
+def k4_inputs(dev, B, d, seed):
+    """A scorer with a non-trivial batch norm and biases, unit head and
+    value rows, attribute rows at the attribute table's scale, a mask with
+    a padded tail of 7 rows and an incoming gradient of the scores."""
+    import torch
+
+    from multike_tpu_torch import params as tp
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    p = {k: x.to(dev) for k, x in tp.init_conv_params(
+        torch.Generator().manual_seed(seed), d, "cpu").items()}
+    p["bn_gamma"] = 1 + 0.3 * torch.randn(d, device=dev, generator=g)
+    for k in ("bn_beta", "conv0_b", "conv1_b", "dense_b"):
+        p[k] = 0.1 * torch.randn(p[k].shape, device=dev, generator=g)
+    unit = lambda x: torch.nn.functional.normalize(x, dim=-1)  # noqa: E731
+    h = unit(torch.randn(B, d, device=dev, generator=g))
+    a = 0.1 * torch.randn(B, d, device=dev, generator=g)
+    v = unit(torch.randn(B, d, device=dev, generator=g))
+    mask = torch.ones(B, device=dev)
+    mask[max(B - 7, 1):] = 0.0
+    gs = torch.rand(B, device=dev, generator=g) - 0.5
+    return p, (h, a, v), mask, gs
+
+
+def _k4_grads(p, rows, mask, gs, score_fn=None):
+    """The scores and their gradients with respect to the rows and every
+    parameter for the incoming gradient ``gs``, through ``score_fn``
+    (default: the streams' ``conv_score``, K4 on the card) and autograd."""
+    import torch
+
+    from multike_tpu_torch.views import attr_conv
+
+    score_fn = score_fn or attr_conv.conv_score
+    names = list(p)
+    leaves = [x.detach().requires_grad_() for x in (*rows, *p.values())]
+    score = score_fn(dict(zip(names, leaves[3:])), *leaves[:3], mask=mask)
+    grads = torch.autograd.grad(score, leaves, gs)
+    return score.detach(), dict(zip(["h", "a", "v", *names], grads))
+
+
+def _k4_errors(got_score, got, want_score, want):
+    """Each output's largest error over its largest element."""
+    out = {"score": float((got_score.double() - want_score).abs().max())
+           / float(want_score.abs().max())}
+    for k, w in want.items():
+        top = float(w.abs().max())
+        e = float((got[k].double() - w).abs().max())
+        out[k] = e / top if top > 0 else e
+    return out
+
+
+def device_ms(run, calls: int = 10) -> float:
+    """Device ms a call of ``run``: the sum of its kernels', copies' and
+    fills' times, from torch.profiler over ``calls`` calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            run()
+        torch.cuda.synchronize()
+    return sum((e.time_range.end - e.time_range.start) / 1e3
+               for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / calls
+
+
+def _k4_case(dev, peaks, B, d, seed=0):
+    """K4 at (B, d) through the streams' ``conv_score`` and autograd's
+    backward: against the plain version in float64 on the card (each
+    output within 2e-5 of its largest element, or within twice the error
+    of the plain version in float32 and of the eager ``conv_stages`` with
+    autograd, cuDNN's convolutions, on the card), bitwise from call to
+    call, one forward launch a call; timed (the device time of a call,
+    forward alone and with the backward, and of each of its six kernels)
+    beside the bound and the eager ``conv_stages`` with autograd
+    (``plain``)."""
+    import torch
+
+    from gpubench.lib import bounds, bounds_itc
+    from multike_tpu_torch.kernels import conv_score as k4
+    from multike_tpu_torch.views import attr_conv
+
+    p, rows, mask, gs = k4_inputs(dev, B, d, seed)
+    n = k4.launches
+    s1, g1 = _k4_grads(p, rows, mask, gs)
+    s2, g2 = _k4_grads(p, rows, mask, gs)
+    torch.cuda.synchronize()
+    check(k4.launches == n + 2, f"K4 ({B}, {d}): {k4.launches - n} forward "
+          "launches for two calls")
+    check(torch.equal(s1, s2) and all(torch.equal(g1[k], g2[k]) for k in g1),
+          f"K4 ({B}, {d}): two calls differ")
+    p64 = {k: x.double() for k, x in p.items()}
+    want_s, back = k4.conv_score_plain(p64, *(x.double() for x in rows),
+                                       mask.double())
+    want = back(gs.double())
+    err = _k4_errors(s1, g1, want_s, want)
+    s32, back32 = k4.conv_score_plain(p, *rows, mask)
+    plain32 = _k4_errors(s32, back32(gs), want_s, want)
+
+    def stages(pp, h, a, v, mask=None):
+        return attr_conv.conv_stages(pp, h, a, v, mask=mask)["score"]
+
+    eager = _k4_errors(*_k4_grads(p, rows, mask, gs, stages), want_s, want)
+    for k, e in err.items():
+        check(e <= max(2e-5, 2 * plain32[k], 2 * eager[k]),
+              f"K4 ({B}, {d}): {k} {e:.2e} of its largest element from the "
+              f"float64 plain version (float32 plain {plain32[k]:.2e}, eager "
+              f"{eager[k]:.2e})")
+
+    def fwd():
+        return k4._launch_forward(p, *rows, mask, None)
+
+    def fwd_bwd():
+        return fwd()[1](gs)
+
+    flops = B * bounds_itc.conv_row_flops(d) * (1 + bounds.BACKWARD)
+    bound_ms = flops / peaks[1] * 1e3
+    fwd_dev = device_ms(fwd)
+    ms = device_ms(fwd_bwd)
+    passes = passes_ms(fwd_bwd, K4_PASSES)
+    wall_ms = time_ms(fwd_bwd, 20)
+    wrapper_ms = time_ms(lambda: _k4_grads(p, rows, mask, gs), 20)
+    plain_ms = device_ms(lambda: _k4_grads(p, rows, mask, gs, stages))
+    plain_wall_ms = time_ms(lambda: _k4_grads(p, rows, mask, gs, stages), 20)
+    closed_ms = device_ms(lambda: k4.conv_score_plain(p, *rows, mask)[1](gs))
+    worst = max(err.values())
+    log(f"[K4] ({B}, {d}): card {ms:.4f} ms forward and backward (forward "
+        f"{fwd_dev:.4f}; passes "
+        f"{', '.join(f'{k} {v:.4f}' for k, v in passes.items())}; wall "
+        f"{wall_ms:.4f}, through conv_score and autograd {wrapper_ms:.4f}), "
+        f"bound {bound_ms:.4f} ms ({100 * bound_ms / ms:.1f}%; "
+        f"conv_row_flops x {1 + bounds.BACKWARD} at {peaks[1] / 1e12:.0f} "
+        f"TFLOP/s), plain (eager conv_stages and autograd, cuDNN) "
+        f"{plain_ms:.4f} ms card, {plain_wall_ms:.4f} wall; closed form "
+        f"fp32 {closed_ms:.4f} card; worst error {worst:.2e} (float32 plain "
+        f"{max(plain32.values()):.2e}, eager {max(eager.values()):.2e}); "
+        "bitwise call to call")
+    return dict(ms=ms, forward_ms=fwd_dev, passes_ms=passes, wall_ms=wall_ms,
+                wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                plain_wall_ms=plain_wall_ms, closed_form_ms=closed_ms,
+                bound_ms=bound_ms, bound_share=bound_ms / ms, flops=flops,
+                max_rel_err=worst, errors=err, plain32_errors=plain32,
+                eager_errors=eager, shape=[B, d])
+
+
+def phase_conv_score(dev, peaks):
+    """K4 at the ITC cell's CNN step and at d = 384, then at 4,097 and one
+    row (compared, not timed)."""
+    import torch
+
+    from multike_tpu_torch.kernels import conv_score as k4
+
+    main, wide = (_k4_case(dev, peaks, B, d) for B, d in K4_STEPS)
+    for B, d in ((4097, 75), (1, 75)):
+        p, rows, mask, gs = k4_inputs(dev, B, d, 1)
+        s, g = _k4_grads(p, rows, mask, gs)
+        want_s, back = k4.conv_score_plain(
+            {k: x.double() for k, x in p.items()},
+            *(x.double() for x in rows), mask.double())
+        err = _k4_errors(s, g, want_s, back(gs.double()))
+        torch.cuda.synchronize()
+        check(max(err.values()) <= 2e-5, f"K4 ({B}, {d}): {err}")
+        log(f"[K4] ({B}, {d}): worst error {max(err.values()):.2e}")
+    return dict(name="conv_score", route="cuda",
+                source="multike_tpu_torch/csrc/conv_score_kernel.cu",
+                replaces=None,
+                wrapper="multike_tpu_torch.views.attr_conv.conv_score",
+                max_rel_err=max(main["max_rel_err"], wide["max_rel_err"]),
+                ms=main["ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], bound_by="operations",
+                library_ms=None, shape=main["shape"], step=main,
+                wide_step=wide)
+
+
 def phase_k1_of(dev, peaks, root, seed=0, **sizes):
     """``sparse_adagrad.row_apply`` of the package under ``root`` at each
     step of ``k1_steps``, timed as phase 2 times K1, and, where that package
@@ -885,8 +1084,11 @@ def phase_main_path(dev, n=20_000, epochs=4, dim=75, batch=5000):
     log(f"[main] rv valid MRR {before:.4f} -> {after:.4f} (hits@1 {hits1}%) "
         f"after {epochs} epochs in {train_s:.1f} s; launches {launches}")
     check(after > before, f"rv valid MRR did not rise: {before} -> {after}")
-    check(all(v > 0 for v in launches.values()),
-          f"a kernel did not launch on the main path: {launches}")
+    check(all(launches[k] > 0 for k in ("fused_row_adagrad", "rank_count",
+                                        "chunk_loss"))
+          and launches["conv_score"] == 0,
+          f"a kernel did not launch on the main path, or K4 (no CNN scorer "
+          f"on it) did: {launches}")
     check_against_cpu(trainer, emb)
     return launches
 
@@ -1202,18 +1404,21 @@ def _count_launches(fn, into: dict, key: str):
     call under ``key``."""
     from multike_tpu_torch.kernels import apply_kernel as ak
     from multike_tpu_torch.kernels import chunk_loss as ck
+    from multike_tpu_torch.kernels import conv_score as k4
     from multike_tpu_torch.kernels import rank_kernel as rk
 
     def wrapped(*a, **kw):
         k1, k2, k3, t0 = ak.launches, rk.launches, ck.launches, time.time()
+        k4_n = k4.launches
         out = fn(*a, **kw)
         rec = into.setdefault(key, {"calls": 0, "fused_row_adagrad": 0,
                                     "rank_count": 0, "chunk_loss": 0,
-                                    "seconds": []})
+                                    "conv_score": 0, "seconds": []})
         rec["calls"] += 1
         rec["fused_row_adagrad"] += ak.launches - k1
         rec["rank_count"] += rk.launches - k2
         rec["chunk_loss"] += ck.launches - k3
+        rec["conv_score"] += k4.launches - k4_n
         rec["seconds"].append(time.time() - t0)
         return out
     return wrapped
@@ -1293,6 +1498,10 @@ def phase_itc(dev, n=20_000, dim=75, batch=5000, epochs=10, cpu_rows=256):
               f"{stream}: no epoch or a loss that is not finite")
         check(by_stream[stream]["fused_row_adagrad"] > 0,
               f"K1 did not launch in {stream}")
+        check((by_stream[stream]["conv_score"] > 0)
+              == (stream in ("attr_view", "ckge_attr", "ckga_attr")),
+              f"K4 launched {by_stream[stream]['conv_score']} times in "
+              f"{stream}: it scores the three attribute streams only")
         secs = [r["seconds"] for r in rs]
         streams_s[stream] = {"epochs": len(rs), "first_s": secs[0],
                              "mean_later_s": float(np.mean(secs[1:]))
@@ -1577,6 +1786,10 @@ def phase_ssl(dev, data, n=20_000, dim=75, batch=5000, epochs=10):
               f"{stream}: no epoch or a loss that is not finite")
         check(by_stream[stream]["fused_row_adagrad"] > 0,
               f"K1 did not launch in {stream}")
+        check((by_stream[stream]["conv_score"] > 0)
+              == (stream in ("attr_view", "ckge_attr", "ckga_attr")),
+              f"K4 launched {by_stream[stream]['conv_score']} times in "
+              f"{stream}: it scores the three attribute streams only")
         secs = [r["seconds"] for r in rs]
         streams_s[stream] = {"epochs": len(rs), "first_s": secs[0],
                              "mean_later_s": float(np.mean(secs[1:]))
@@ -1776,20 +1989,23 @@ def spawn_ranks(task: str, n: int, spec: dict, timeout: float):
 def _launches():
     from multike_tpu_torch.kernels import apply_kernel as ak
     from multike_tpu_torch.kernels import chunk_loss as ck
+    from multike_tpu_torch.kernels import conv_score as k4
     from multike_tpu_torch.kernels import rank_kernel as rk
 
     return {"fused_row_adagrad": ak.launches, "rank_count": rk.launches,
-            "chunk_loss": ck.launches}
+            "chunk_loss": ck.launches, "conv_score": k4.launches}
 
 
 def _zero_launches():
     from multike_tpu_torch.kernels import apply_kernel as ak
     from multike_tpu_torch.kernels import chunk_loss as ck
+    from multike_tpu_torch.kernels import conv_score as k4
     from multike_tpu_torch.kernels import rank_kernel as rk
 
     ak.launches = 0
     rk.launches = 0
     ck.launches = 0
+    k4.launches = 0
 
 
 def _sync(dev):
@@ -2242,17 +2458,18 @@ def phase_mesh(dev, card, n=20_000, dim=75, batch=5000, epochs=10,
                               launches_one_rank=one[0]["launches"])
 
     # K1 and K2 on every rank of every run
-    expect = {"world1": ("fused_row_adagrad", "rank_count"),
+    expect = {"world1": ("fused_row_adagrad", "rank_count", "conv_score"),
               "dryrun_2x2": ("fused_row_adagrad", "rank_count"),
-              "ring_2": ("rank_count",), "itc_dp2": ("fused_row_adagrad",
-                                                     "rank_count")}
+              "ring_2": ("rank_count",),
+              "itc_dp2": ("fused_row_adagrad", "rank_count", "conv_score")}
     for run, names in expect.items():
         for r, counts in enumerate(by_rank[run]):
             for name in names:
                 check(counts[name] > 0, f"{name} did not launch on rank {r} "
                       f"of the mesh run {run}: {by_rank[run]}")
     total = {name: sum(c[name] for runs_ in by_rank.values() for c in runs_)
-             for name in ("fused_row_adagrad", "rank_count", "chunk_loss")}
+             for name in ("fused_row_adagrad", "rank_count", "chunk_loss",
+                          "conv_score")}
     numbers["launches_by_rank"] = by_rank
     log(f"[mesh] {json.dumps(numbers)}")
     return total, by_rank, numbers
@@ -2359,10 +2576,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script needs one GPU",
               file=sys.stderr)
         return 2
-    if args and args != ["--k3"] and (
+    if args and args not in (["--k3"], ["--k4"]) and (
             len(args) != 2 or args[0] not in ("--k1-of", "--k2-of")):
-        print("usage: chip_smoke.py [--k1-of DIR | --k2-of DIR | --k3]",
-              file=sys.stderr)
+        print("usage: chip_smoke.py [--k1-of DIR | --k2-of DIR | --k3 | "
+              "--k4]", file=sys.stderr)
         return 2
     root = os.path.abspath(args[1]) if len(args) == 2 else REPO
     if not os.path.isdir(os.path.join(root, "multike_tpu_torch")):
@@ -2388,6 +2605,12 @@ def main() -> int:
         print(json.dumps({"kernels": [k3]}), flush=True)
         print(card, flush=True)
         return 0
+    if args == ["--k4"]:
+        k4 = phase_conv_score(dev, peaks)
+        log(f"[done] K4 in {time.time() - t_start:.1f} s")
+        print(json.dumps({"kernels": [k4]}), flush=True)
+        print(card, flush=True)
+        return 0
     if args and args[0] == "--k1-of":
         k1 = phase_k1_of(dev, peaks, root)
         log(f"[done] K1 of {root} in {time.time() - t_start:.1f} s")
@@ -2402,6 +2625,7 @@ def main() -> int:
         return 0
     k1 = phase_apply(dev, peaks)
     k3 = phase_chunk_loss(dev, peaks)
+    k4 = phase_conv_score(dev, peaks)
     k2 = phase_rank(dev, peaks)
     k2["widths"] = phase_widths(dev, peaks)
     main_launches = phase_main_path(dev)
@@ -2412,7 +2636,7 @@ def main() -> int:
     mesh_launches, mesh_by_rank, _ = phase_mesh(dev, card)
     wide_launches, wide = phase_wide_itc(dev)
 
-    for k in (k1, k2, k3):
+    for k in (k1, k2, k3, k4):
         k["launches"] = ssl_launches[k["name"]]
         k["launches_by_path"] = {"ssl": ssl_launches[k["name"]],
                                  "itc": itc_launches[k["name"]],
@@ -2426,7 +2650,7 @@ def main() -> int:
     log(f"[parity] {json.dumps(parity)}")
     log(f"[wide] {json.dumps(wide)}")
     log(f"[done] all phases passed in {time.time() - t_start:.1f} s")
-    print(json.dumps({"kernels": [k1, k2, k3]}), flush=True)
+    print(json.dumps({"kernels": [k1, k2, k3, k4]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

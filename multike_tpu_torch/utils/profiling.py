@@ -59,10 +59,11 @@ SPANS = tuple(f"{s}.{part}" for s in STREAMS for part in ("epoch", "step")) \
 # and all their real slots, once an epoch; the (positive, pool member)
 # pairs of each launch of K3, the chunk-shared loss's kernel
 # (kernels/chunk_loss.py); the rows of each call of the CNN scorer
-# (views/attr_conv.py); the ids of each call of K1, the row-sparse apply
+# (views/attr_conv.py), and of each forward launch of K4, its kernels
+# (kernels/conv_score.py); the ids of each call of K1, the row-sparse apply
 # (kernels/apply_kernel.py), and the distinct rows they touch
 COUNTERS = ("sampling.dropped", "sampling.slots", "loss.chunk_pairs",
-            "conv.rows", "apply.ids", "apply.unique")
+            "conv.rows", "conv.kernel_rows", "apply.ids", "apply.unique")
 
 
 class _Record:

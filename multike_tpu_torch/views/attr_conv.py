@@ -15,19 +15,24 @@ For a batch of (h, a, v) embeddings, each (B, dim):
      WHOLE tensor, after zeroing the masked rows;
   6. score = -||h - dense||^2.
 
-The convolution is PyTorch's (cuDNN on the card, with TF32 off); the JAX
-package computes it with ``lax.conv`` outside any Pallas kernel.
+:func:`conv_stages` is that forward in plain PyTorch, every stage kept (the
+tests compare it with the JAX package, which computes it with ``lax.conv``
+outside any Pallas kernel). :func:`conv_score`, the streams' call, runs the
+scorer as one autograd ``Function`` with a closed-form backward
+(``kernels/conv_score.py``): the K4 kernels on the card, their plain version
+on the CPU.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from multike_tpu_torch.kernels import conv_score as k4
 from multike_tpu_torch.params import l2_normalize
 from multike_tpu_torch.utils.profiling import count, span
 
-BN_EPS = 1e-3  # tf.layers.batch_normalization default epsilon
-SAME_PAD = (1, 2, 0, 1)  # F.pad order: (left, right, top, bottom)
+BN_EPS = k4.BN_EPS
+SAME_PAD = k4.TF_SAME_PAD    # F.pad order: (left, right, top, bottom)
 
 
 def conv_stages(conv_params, attr_hs, attr_as, attr_vs, layer_num: int = 2,
@@ -73,9 +78,10 @@ def conv_score(conv_params, attr_hs, attr_as, attr_vs, layer_num: int = 2,
     ``batch_sum``: with the batch split over ranks, the differentiable sum
     over them that makes step 5's norm the whole batch's
     (``params.l2_normalize``). Its span is ``step.conv``, and it adds its
-    rows to the tracer's counter ``conv.rows``."""
+    rows to the tracer's counter ``conv.rows`` (and K4's launches theirs to
+    ``conv.kernel_rows``)."""
     with span("step.conv"):
         count("conv.rows", attr_hs.shape[0])
-        return conv_stages(conv_params, attr_hs, attr_as, attr_vs,
-                           layer_num=layer_num, mask=mask,
-                           batch_sum=batch_sum)["score"]
+        return k4.scores(conv_params, attr_hs, attr_as, attr_vs, mask=mask,
+                         batch_sum=batch_sum, layer_num=layer_num,
+                         pad=SAME_PAD)

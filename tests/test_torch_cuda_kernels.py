@@ -13,8 +13,11 @@ from multike_tpu_torch import params as tp
 from multike_tpu_torch.config import Config
 from multike_tpu_torch.kernels import apply_kernel as ak
 from multike_tpu_torch.kernels import chunk_loss as ck
+from multike_tpu_torch.kernels import conv_score as k4
 from multike_tpu_torch.kernels import rank_kernel as rk
 from multike_tpu_torch.train import streams as tst
+from multike_tpu_torch.utils import profiling
+from multike_tpu_torch.views import attr_conv
 
 pytestmark = pytest.mark.cuda
 
@@ -451,3 +454,142 @@ def test_chunk_loss_launches_once_a_kg_per_rel_view_step(dev):
             err = float((changes[0][k] - changes[1][k]).abs().max())
             assert err <= 1e-5 * top ** 0.5 * cfg.learning_rate / 0.1 ** 0.5, \
                 (sparse, k, "change", err)
+
+
+def _k4_inputs(dev, B, d, seed):
+    """A scorer with a non-trivial batch norm and biases, unit head and
+    value rows, attribute rows at the attribute table's scale, a mask with
+    a padded tail of 7 rows (none for one row) and an incoming gradient of
+    the scores, made with numpy; card tensors."""
+    rng = np.random.RandomState(seed)
+    to = lambda x: torch.tensor(np.asarray(x, np.float32), device=dev)  # noqa
+    p = {k: v.to(dev) for k, v in tp.init_conv_params(
+        torch.Generator().manual_seed(seed), d, "cpu").items()}
+    p["bn_gamma"] = to(1 + 0.3 * rng.normal(size=d))
+    for k in ("bn_beta", "conv0_b", "conv1_b", "dense_b"):
+        p[k] = to(0.1 * rng.normal(size=p[k].shape))
+    unit = lambda x: x / np.linalg.norm(x, axis=1, keepdims=True)  # noqa
+    rows = (to(unit(rng.normal(size=(B, d)))),
+            to(0.1 * rng.normal(size=(B, d))),
+            to(unit(rng.normal(size=(B, d)))))
+    mask = to(np.arange(B) < max(B - 7, 1))
+    return p, rows, mask, to(rng.uniform(-0.5, 0.5, size=B))
+
+
+def _k4_grads(p, rows, mask, gs, score_fn=attr_conv.conv_score):
+    """The scores and their gradients with respect to the rows and every
+    parameter for the incoming gradient ``gs``, through the streams'
+    ``conv_score`` (or ``score_fn``) and autograd's backward."""
+    names = list(p)
+    leaves = [x.detach().requires_grad_() for x in (*rows, *p.values())]
+    score = score_fn(dict(zip(names, leaves[3:])), *leaves[:3], mask=mask)
+    grads = torch.autograd.grad(score, leaves, gs)
+    return [score.detach(), *grads]
+
+
+@pytest.mark.parametrize("B,d", [(5000, 75), (4097, 75), (5000, 384),
+                                 (1, 75)])
+def test_conv_score_matches_plain(dev, B, d):
+    """K4 through the streams' ``conv_score`` and autograd's backward
+    against the plain version in float64 on the card: the scores and every
+    gradient (rows and parameters) within 2e-5 of their largest element,
+    or within twice the error of the plain version in float32 on the card
+    (sums over up to 5,000 rows in float32: a bias's gradient cancels, and
+    both orders err alike). Two calls give the same bits; each call
+    launches the forward once."""
+    p, rows, mask, gs = _k4_inputs(dev, B, d, B + d)
+    runs = []
+    for _ in range(2):
+        n = k4.launches
+        runs.append(_k4_grads(p, rows, mask, gs))
+        assert k4.launches == n + 1
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    want_s, back = k4.conv_score_plain({k: x.double() for k, x in p.items()},
+                                       *(x.double() for x in rows),
+                                       mask.double())
+    keys = ["h", "a", "v", *p]
+    g64 = back(gs.double())
+    want = [want_s] + [g64[k] for k in keys]
+    s32, back32 = k4.conv_score_plain(p, *rows, mask)
+    g32 = back32(gs)
+    plain32 = [s32] + [g32[k] for k in keys]
+    for name, got, w, f32 in zip(["score"] + keys, runs[0], want, plain32):
+        assert got.shape == w.shape, name
+        top = float(w.abs().max())
+        err = float((got.double() - w).abs().max())
+        err32 = float((f32.double() - w).abs().max())
+        assert err <= max(2e-5 * top, 2 * err32), (name, err / top,
+                                                  err32 / top)
+
+
+@pytest.mark.parametrize("stream", ["attr_view", "ckga_attr"])
+def test_conv_score_launches_once_a_cnn_step(dev, stream):
+    """An attribute stream's epoch on the card launches K4's forward once
+    a step, and under a profiler session its ``conv.kernel_rows`` equal
+    the scorer's ``conv.rows``: every scored row ran the kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    E, R, A, L, d = 3000, 10, 40, 800, 75
+    cfg = Config(dim=d, batch_size=2000, attribute_batch_size=1500,
+                 learning_rate=0.01, row_sparse_updates="on")
+    rng = np.random.RandomState(5)
+    params = tp.init_params(cfg, E, R, A, device=dev)
+    opt = tst.init_stream_opt_states(cfg, params)[stream]
+    lit = rng.normal(size=(L, d))
+    constants = {"literal_embeds": torch.tensor(
+        lit / np.linalg.norm(lit, axis=1, keepdims=True), dtype=torch.float32,
+        device=dev)}
+
+    def trips(n, lo, hi):
+        return torch.tensor(np.stack([rng.randint(lo, hi, n),
+                                      rng.randint(0, A, n),
+                                      rng.randint(0, L, n)], 1), device=dev)
+
+    def weights(n):
+        return torch.tensor(rng.uniform(0.2, 1.0, n), dtype=torch.float32,
+                            device=dev)
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    if stream == "attr_view":
+        epoch, steps, _ = tst.build_attr_view_epoch(cfg, 2500, 1900)
+        args = (constants, trips(2500, 0, 1500), weights(2500),
+                trips(1900, 1500, 3000), weights(1900))
+        kw = {}
+    else:
+        epoch, steps, _ = tst.build_ckga_attr_epoch(cfg, 4100)
+        args, kw = (trips(4100, 0, 3000), weights(4100)), dict(
+            constants=constants)
+    epoch(params, opt, gen, *args, **kw)
+    profiling.drain()
+    n = k4.launches
+    with profile(activities=[ProfilerActivity.CPU]):
+        epoch(params, opt, gen, *args, **kw)
+        torch.cuda.synchronize()
+    rec = profiling.drain()
+    assert steps > 1 and k4.launches == n + steps
+    counters = rec["counters"]
+    assert counters["conv.kernel_rows"] == counters["conv.rows"] > 0
+    assert rec["by_name"]["step.conv"]["count"] == steps
+
+
+def test_conv_score_refuses_what_it_does_not_take(dev):
+    """On the card the scorer takes two convolutions of 2 maps with TF's
+    SAME padding at a width up to MAX_DIM, and raises for the rest before
+    any launch."""
+    p, rows, mask, _ = _k4_inputs(dev, 64, 75, 0)
+    n = k4.launches
+    with pytest.raises(ValueError, match="layer_num"):
+        attr_conv.conv_score(p, *rows, layer_num=3)
+    with pytest.raises(ValueError, match="SAME"):
+        k4.scores(p, *rows, pad=(2, 1, 1, 0))
+    three = {**p, "conv0_w": torch.zeros(2, 4, 1, 3, device=dev),
+             "conv0_b": torch.zeros(3, device=dev)}
+    with pytest.raises(ValueError, match="conv0"):
+        attr_conv.conv_score(three, *rows)
+    wide = torch.zeros(4, k4.MAX_DIM + 1, device=dev)
+    with pytest.raises(ValueError, match="0 < d"):
+        attr_conv.conv_score(p, wide, wide, wide)
+    with pytest.raises(TypeError):
+        attr_conv.conv_score(p, *(x.double() for x in rows))
+    assert k4.launches == n
