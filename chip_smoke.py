@@ -1,5 +1,9 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port (``multike_tpu_torch``) on one NVIDIA GPU.
+"""Smoke run of the PyTorch port (``multike_tpu_torch``) on one NVIDIA GPU:
+what the benchmark (``gpubench/``) cannot show, each kernel against its
+plain version and the drivers' and the mesh's paths checked, measured with
+the benchmark's own yardsticks (``gpubench/lib``: the cards' peaks, the
+kernels' bounds, the inputs).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --k2-of DIR   # phases 1 and 3 only, for the
@@ -11,7 +15,10 @@
     python3 chip_smoke.py --k3          # phases 1 and 2b only
     python3 chip_smoke.py --k4          # phases 1 and 2c only
 
-(``--mesh-rank TASK SPEC`` is how phase 8 starts its rank processes.)
+(``--mesh-rank TASK SPEC`` is how phase 8 starts its rank processes.) Each
+kernel phase says which timer its ``ms`` comes from (``timer``): CUDA
+events around back-to-back calls (``events``, wall time) or the sum of a
+call's device ops in torch.profiler (``profiler``).
 
 Phases, each of which must pass or the script exits non-zero:
 
@@ -26,15 +33,17 @@ Phases, each of which must pass or the script exits non-zero:
      row (the ids of one batch-5000 per_slot step) and at one per-slot
      rel_view step of phase 7's 20K pair: bitwise equal to its plain
      version on the CPU and from launch to launch, within rtol 2e-6 / atol
-     1e-7 of its plain version on the card, timed beside its bytes bound;
+     1e-7 of its plain version on the card, no device kernel whose name
+     holds "sort" inside a call, timed beside its bytes bound;
   2b. K3, the chunk-shared loss with its gradients, at the relation-view
      cell's step (two KGs: 10 chunks of 4,064 and of 3,937 positives,
      pools of 128, d = 75) and at d = 384, through the wrapper and
      autograd's backward (incoming gradient 0.37), with keep flags and
      without: within rtol 1e-6 (the loss) and 2e-6 of the largest element
      (each gradient) of its plain version in float64 on the card, bitwise
-     from call to call, timed (its two kernels apart, by the profiler)
-     beside its FLOP bound and its plain version in float32;
+     from call to call and under ``torch.no_grad()``, timed (its two
+     kernels apart, by the profiler) beside its FLOP bound and its plain
+     version in float32;
   2c. K4, the CNN scorer with its closed-form backward, at the ITC cell's
      CNN step (5,000 rows, d = 75) and at d = 384, through the streams'
      ``conv_score`` and autograd's backward (a mask with a padded tail):
@@ -58,12 +67,12 @@ Phases, each of which must pass or the script exits non-zero:
   4. the main path: ``MultiKETrainer`` trains the relation view on the
      port's synthetic 20K-entity KG pair and ``views.valid_metrics`` ranks
      it; the rv valid MRR must rise and K1, K2 and K3 must have launched;
-  5. relation-view throughput at bench.py's shape (100K entities and 600K
-     random triples per KG, batch 80000);
-     Then bench.py's reference-parity row: batch 5000, per_slot negatives
-     with Bloom "drop" rejection, uniform and truncated (DWY100K-shaped
-     neighbor table), row-sparse, with a profile of a truncated epoch;
-     phase 2 also times K1 at this row's step shape;
+  5. bench.py's reference-parity row at its shape (100K entities and 600K
+     random triples per KG): batch 5000, per_slot negatives with Bloom
+     "drop" rejection, uniform and truncated (DWY100K-shaped neighbor
+     table), then uniform with "resample" rejection, row-sparse: every
+     loss finite and K1 launched, the drop shares and Bloom passes a step
+     reported (phase 2 times K1 at this row's step shape);
   6. the ITC driver, through the calls ``cli.main`` makes (DataModel with
      the literal encoder at full width, predicate alignment,
      ``MultiKE_ITC.run``) on the 20K pair, d=75, row-sparse on, cut to 10
@@ -134,18 +143,6 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-# Published peaks of each H100 part, keyed by the name nvidia-smi gives it
-# (NVIDIA's data sheets, at the part's full power limit): device memory
-# bytes/s and float32 FLOP/s outside the tensor cores. Each bound below is
-# the larger of bytes over the first and operations over the second. A card
-# this table does not know fails the run, so no bound is taken from the
-# peaks of another part.
-PEAKS = {
-    "NVIDIA H100 80GB HBM3": (3.35e12, 67e12),      # SXM5
-    "NVIDIA H100 NVL": (3.9e12, 60e12),
-    "NVIDIA H100 PCIe": (2.0e12, 51e12),
-}
-
 
 class SmokeFailure(RuntimeError):
     pass
@@ -160,28 +157,12 @@ def log(*a):
     print(*a, flush=True)
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr}")
-    return out.stdout.strip().splitlines()[0]
-
-
-def card_peaks(card: str):
-    """(bytes/s, fp32 FLOP/s) of the card named first in ``card``."""
-    name = card.split(",")[0].strip()
-    check(name in PEAKS, f"no published peaks for {name!r}: add its data "
-          "sheet's memory rate and fp32 rate to PEAKS")
-    return PEAKS[name]
-
-
-def time_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Mean device time of ``fn`` over ``reps`` calls, by CUDA events."""
+def time_ms(fn, reps: int) -> float:
+    """Wall time of a call of ``fn``, by CUDA events around ``reps``
+    back-to-back calls after one more."""
     import torch
 
-    for _ in range(warmup):
-        fn()
+    fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -191,6 +172,35 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(run, names: str = "", calls: int = 10):
+    """Device time of a call of ``run``, from torch.profiler over ``calls``
+    calls after one unprofiled call: ``(ms, passes, ops)`` with ``ms`` the
+    sum of its kernels', copies' and fills' times, ``passes`` the ms of each
+    kernel ``<name>_kernel`` for a name of ``names`` (a regex alternation)
+    and ``ops`` the names of every device op that ran."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            run()
+        torch.cuda.synchronize()
+    ms, passes, ops = 0.0, {}, set()
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        t = (e.time_range.end - e.time_range.start) / 1e3 / calls
+        ms += t
+        ops.add(e.name)
+        if names and (m := re.search(rf"({names})_kernel", e.name)):
+            passes[m[1]] = passes.get(m[1], 0.0) + t
+    return ms, passes, ops
 
 
 def clocks_under_load(run, calls: int) -> dict:
@@ -233,16 +243,6 @@ def clocks_under_load(run, calls: int) -> dict:
                 sm_mhz=statistics.median(x[0] for x in samples),
                 max_sm_mhz=max(x[1] for x in samples),
                 power_w=statistics.median(x[2] for x in samples))
-
-
-def bench_triples(rng, n_triples, ent_lo, ent_hi, n_rel, rel_lo):
-    """bench.py's random triples: uniform heads, relations and tails."""
-    import numpy as np
-
-    h = rng.randint(ent_lo, ent_hi, size=n_triples)
-    r = rng.randint(rel_lo, rel_lo + n_rel, size=n_triples)
-    t = rng.randint(ent_lo, ent_hi, size=n_triples)
-    return np.stack([h, r, t], axis=1).astype(np.int64)
 
 
 # ---------------------------------------------------------------------------
@@ -290,24 +290,24 @@ def phase_build():
 
 def k1_steps(dev, n_ent=100_000, rel_triples=600_000, ssl_n=20_000,
              seed=0):
-    """The ids of phase 2's K1 steps, drawn by the port's rel_view epochs:
-    one bench.py step (chunk_shared, batch 80000) into a 200K x 75 table,
-    the same ids at phase 9's width, one step of bench.py's
+    """The ids of phase 2's K1 steps, drawn by the port's rel_view epochs
+    (on triples of ``gpubench.lib.data.kg_pair_triples``, bench.py's
+    shape): one bench.py step (chunk_shared, batch 80000) into a 200K x 75
+    table, the same ids at phase 9's width, one step of bench.py's
     reference-parity row (per_slot, batch 5000), and one per-slot rel_view
     step of the SSL cell (phase 7's 20K synthetic pair, batch 5000).
     Returns [(label, ids, rows, d)]."""
-    import numpy as np
     import torch
 
+    from gpubench.lib import data
     from multike_tpu_torch.config import Config
     from multike_tpu_torch.data.kg import triples_to_array
     from multike_tpu_torch.train import streams
 
     per_slot = dict(dim=75, batch_size=5000, neg_triple_num=10,
                     neg_scheme="per_slot", truncated_neg_scheme="per_slot")
-    rng = np.random.RandomState(seed)
-    bench = (bench_triples(rng, rel_triples, 0, n_ent, 500, 0),
-             bench_triples(rng, rel_triples, n_ent, 2 * n_ent, 500, 500),
+    bench = (*data.kg_pair_triples(seed, n_ent, (rel_triples, rel_triples),
+                                   (500, 500)),
              ((0, n_ent), (n_ent, 2 * n_ent)), 2 * n_ent)
     kgs = synthetic_kgs(ssl_n)
     ssl = (triples_to_array(kgs.kg1.local_relation_triples_set),
@@ -342,18 +342,13 @@ def _k1_inputs(dev, ids, rows, d, seed):
     return param, acc, g_rows
 
 
-def k1_bound_ms(n, unique, d, mem_rate):
-    """The whole apply's bytes bound: the int64 ids and the gradient rows
-    read once, each touched row of param and acc read and written once."""
-    return (n * (8 + 4 * d) + 16 * unique * d) / mem_rate * 1e3
-
-
 def phase_apply(dev, peaks, seed=0, **sizes):
     """K1 (``row_adagrad``, the whole row-sparse apply) at each step of
     ``k1_steps``: bitwise equal to its plain version on the CPU, two
     launches bitwise equal, untouched rows untouched, within rtol 2e-6 /
     atol 1e-7 of its plain version on the card (whose dedup sums with
-    atomics), and its time beside the bound and the plain version's."""
+    atomics), no sort kernel inside a call, and its time (CUDA events)
+    beside the bound and the plain version's."""
     cases = {label: _k1_case(dev, peaks, ids, rows, d, seed, label)
              for label, ids, rows, d in k1_steps(dev, seed=seed, **sizes)}
     main = cases["chunk_shared"]
@@ -361,6 +356,7 @@ def phase_apply(dev, peaks, seed=0, **sizes):
                 source="multike_tpu_torch/csrc/apply_kernel.cu",
                 replaces="multike_tpu/kernels/apply_kernel.py:144",
                 wrapper="multike_tpu_torch.kernels.apply_kernel.row_adagrad",
+                timer="events",
                 max_abs_err=max(c["max_abs_err"] for c in cases.values()),
                 cpu_plain_bitwise=all(c["cpu_plain_bitwise"]
                                       for c in cases.values()),
@@ -374,6 +370,7 @@ def _k1_case(dev, peaks, ids, rows, d, seed, label):
     """K1 on one step's ids into a (rows, d) table."""
     import torch
 
+    from gpubench.lib import bounds
     from multike_tpu_torch.kernels import apply_kernel as ak
 
     N, lr = ids.shape[0], 0.001
@@ -413,44 +410,26 @@ def _k1_case(dev, peaks, ids, rows, d, seed, label):
     ms = time_ms(lambda: ak.row_adagrad(p_k, a_k, ids, g_rows, lr), 20)
     plain_ms = time_ms(
         lambda: ak.row_adagrad_plain(p_p, a_p, ids, g_rows, lr), 5)
-    passes = passes_ms(lambda: ak.row_adagrad(p_k, a_k, ids, g_rows, lr),
-                       "count|place|fill|apply")
+    _, passes, ops = device_ms(
+        lambda: ak.row_adagrad(p_k, a_k, ids, g_rows, lr),
+        "count|place|fill|apply")
+    sorts = sorted(o for o in ops if "sort" in o.lower())
+    check(not sorts, f"K1 {label}: a row_adagrad call ran sort kernels "
+          f"{sorts}")
     mem_rate = peaks[0]
-    bound_ms = k1_bound_ms(N, U, d, mem_rate)
+    bound_ms = bounds.k1_bytes(N, U, d) / mem_rate * 1e3
     log(f"[K1] {label} step, rows={rows} d={d} ids={N} unique={U} (most "
-        f"{most} a row): kernel {ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"({100 * bound_ms / ms:.1f}%; N(8 + 4d) + 16Ud bytes at "
-        f"{mem_rate / 1e12:.2f} TB/s), plain {plain_ms:.4f} ms; bitwise "
-        f"equal to the CPU plain version and run to run; {err:.3e} from the "
-        "card's plain version; passes (ms) " + ", ".join(
-            f"{k} {v:.4f}" for k, v in passes.items()))
+        f"{most} a row): kernel {ms:.4f} ms (CUDA events), bound "
+        f"{bound_ms:.4f} ms ({100 * bound_ms / ms:.1f}%; N(8 + 4d) + 16Ud "
+        f"bytes at {mem_rate / 1e12:.2f} TB/s), plain {plain_ms:.4f} ms; "
+        f"bitwise equal to the CPU plain version and run to run; {err:.3e} "
+        "from the card's plain version; no sort kernel; passes (profiler "
+        "ms) " + ", ".join(f"{k} {v:.4f}" for k, v in passes.items()))
     return dict(max_abs_err=err, cpu_plain_bitwise=bitwise,
                 repeat_bitwise=repeat, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_share=bound_ms / ms,
                 passes_ms=passes,
                 shape=dict(rows=rows, d=d, ids=N, unique=U, most=most))
-
-
-def passes_ms(run, names: str, calls: int = 10) -> dict:
-    """Device ms a call of each kernel ``<name>_kernel`` of ``names`` (a
-    regex alternation), from torch.profiler over ``calls`` calls of
-    ``run``."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            run()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.events():
-        m = re.search(rf"({names})_kernel", e.name)
-        if e.device_type == DeviceType.CUDA and m:
-            out[m[1]] = out.get(m[1], 0.0) + (
-                e.time_range.end - e.time_range.start) / 1e3 / calls
-    return out
 
 
 # K3's shapes: a step of the benchmark's relation-view cell
@@ -501,8 +480,9 @@ def _k3_case(dev, peaks, kgs, label, seed=0, w=10 / 256, scale=0.37):
     backward with an incoming gradient of ``scale``), with keep flags and
     without: against its plain version in float64 on the card (the loss
     within rtol 1e-6, each gradient within 2e-6 of its largest element),
-    bitwise from call to call and with the loss alone; the launcher's
-    passes timed beside its bound and the plain version in float32."""
+    bitwise from call to call and under ``torch.no_grad()``; the launcher
+    timed (CUDA events; its two kernels apart, by the profiler) beside its
+    bound and the plain version in float32."""
     import torch
 
     from multike_tpu_torch.kernels import chunk_loss as ck
@@ -524,8 +504,8 @@ def _k3_case(dev, peaks, kgs, label, seed=0, w=10 / 256, scale=0.37):
             check(torch.equal(loss, loss2) and all(
                 torch.equal(a, b) for a, b in zip(grads, grads2)),
                 f"K3 {label}: two calls differ")
-            check(torch.equal(alone, loss), f"K3 {label}: the loss alone "
-                  "differs from the loss with its gradients")
+            check(torch.equal(alone, loss), f"K3 {label}: the loss under "
+                  "no_grad differs from the loss with its gradients")
             want_loss, want = ck.chunk_shared_loss_plain(
                 *(x.double() for x in rows), neg_weight=w,
                 pos_mask=mask.double(),
@@ -549,9 +529,8 @@ def _k3_case(dev, peaks, kgs, label, seed=0, w=10 / 256, scale=0.37):
 
     ins = [k3_inputs(dev, *kg, seed + i) for i, kg in enumerate(kgs)]
 
-    def step(fn, **kw):
-        return [fn(*rows, w, mask, *flags, **kw)
-                for rows, mask, flags in ins]
+    def step(fn):
+        return [fn(*rows, w, mask, *flags) for rows, mask, flags in ins]
 
     def wrapped():
         return [_k3_grads(rows, w, mask, flags, gout)
@@ -560,22 +539,21 @@ def _k3_case(dev, peaks, kgs, label, seed=0, w=10 / 256, scale=0.37):
     pairs = sum(nc * s * 2 * c for nc, s, c, _ in kgs)
     flops = sum(nc * s * 2 * c * 6 * d for nc, s, c, d in kgs)
     bound_ms = flops / peaks[1] * 1e3
-    ms = time_ms(lambda: step(ck._launch, grads=True), 20)
+    ms = time_ms(lambda: step(ck._launch), 20)
     wrapper_ms = time_ms(wrapped, 20)
-    loss_ms = time_ms(lambda: step(ck._launch, grads=False), 20)
     plain_ms = time_ms(lambda: step(ck.chunk_shared_loss_plain), 5)
-    passes = passes_ms(lambda: step(ck._launch, grads=True),
-                       "chunk_loss|pool_sum")
+    passes = device_ms(lambda: step(ck._launch), "chunk_loss|pool_sum")[1]
     log(f"[K3] {label}: {kgs}, {pairs} pairs: kernel {ms:.4f} ms a step "
-        f"(passes {', '.join(f'{k} {v:.4f}' for k, v in passes.items())}; "
-        f"through the wrapper and autograd {wrapper_ms:.4f}; loss alone "
-        f"{loss_ms:.4f}), bound {bound_ms:.4f} ms "
+        f"(CUDA events; profiler passes "
+        f"{', '.join(f'{k} {v:.4f}' for k, v in passes.items())}; "
+        f"through the wrapper and autograd {wrapper_ms:.4f}), bound "
+        f"{bound_ms:.4f} ms "
         f"({100 * bound_ms / ms:.1f}%; 6d FLOPs a pair at "
         f"{peaks[1] / 1e12:.0f} TFLOP/s), plain {plain_ms:.4f} ms; bitwise "
         f"call to call; the wrapper's gradients {err:.2e} of their largest "
         "element from the float64 plain version")
-    return dict(ms=ms, wrapper_ms=wrapper_ms, loss_only_ms=loss_ms,
-                passes_ms=passes, plain_ms=plain_ms, bound_ms=bound_ms,
+    return dict(ms=ms, wrapper_ms=wrapper_ms, passes_ms=passes,
+                plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_share=bound_ms / ms, max_rel_err=err, pairs=pairs,
                 flops=flops, shape=[list(kg) for kg in kgs])
 
@@ -588,7 +566,7 @@ def phase_chunk_loss(dev, peaks):
                 source="multike_tpu_torch/csrc/chunk_loss_kernel.cu",
                 replaces=None,
                 wrapper="multike_tpu_torch.kernels.chunk_loss."
-                        "chunk_shared_loss",
+                        "chunk_shared_loss", timer="events",
                 max_rel_err=max(main["max_rel_err"], wide["max_rel_err"]),
                 ms=main["ms"], plain_ms=main["plain_ms"],
                 bound_ms=main["bound_ms"], bound_by="operations",
@@ -642,6 +620,16 @@ def _k4_grads(p, rows, mask, gs, score_fn=None):
     return score.detach(), dict(zip(["h", "a", "v", *names], grads))
 
 
+def _k4_plain64(p, rows, mask, gs):
+    """The scores and gradients of the plain version in float64."""
+    from multike_tpu_torch.kernels import conv_score as k4
+
+    want_s, back = k4.conv_score_plain({k: x.double() for k, x in p.items()},
+                                       *(x.double() for x in rows),
+                                       mask.double())
+    return want_s, back(gs.double())
+
+
 def _k4_errors(got_score, got, want_score, want):
     """Each output's largest error over its largest element."""
     out = {"score": float((got_score.double() - want_score).abs().max())
@@ -651,25 +639,6 @@ def _k4_errors(got_score, got, want_score, want):
         e = float((got[k].double() - w).abs().max())
         out[k] = e / top if top > 0 else e
     return out
-
-
-def device_ms(run, calls: int = 10) -> float:
-    """Device ms a call of ``run``: the sum of its kernels', copies' and
-    fills' times, from torch.profiler over ``calls`` calls."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    run()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            run()
-        torch.cuda.synchronize()
-    return sum((e.time_range.end - e.time_range.start) / 1e3
-               for e in prof.events()
-               if e.device_type == DeviceType.CUDA) / calls
 
 
 def _k4_case(dev, peaks, B, d, seed=0):
@@ -697,10 +666,7 @@ def _k4_case(dev, peaks, B, d, seed=0):
           "launches for two calls")
     check(torch.equal(s1, s2) and all(torch.equal(g1[k], g2[k]) for k in g1),
           f"K4 ({B}, {d}): two calls differ")
-    p64 = {k: x.double() for k, x in p.items()}
-    want_s, back = k4.conv_score_plain(p64, *(x.double() for x in rows),
-                                       mask.double())
-    want = back(gs.double())
+    want_s, want = _k4_plain64(p, rows, mask, gs)
     err = _k4_errors(s1, g1, want_s, want)
     s32, back32 = k4.conv_score_plain(p, *rows, mask)
     plain32 = _k4_errors(s32, back32(gs), want_s, want)
@@ -723,17 +689,17 @@ def _k4_case(dev, peaks, B, d, seed=0):
 
     flops = B * bounds_itc.conv_row_flops(d) * (1 + bounds.BACKWARD)
     bound_ms = flops / peaks[1] * 1e3
-    fwd_dev = device_ms(fwd)
-    ms = device_ms(fwd_bwd)
-    passes = passes_ms(fwd_bwd, K4_PASSES)
+    fwd_dev = device_ms(fwd)[0]
+    ms, passes, _ = device_ms(fwd_bwd, K4_PASSES)
     wall_ms = time_ms(fwd_bwd, 20)
     wrapper_ms = time_ms(lambda: _k4_grads(p, rows, mask, gs), 20)
-    plain_ms = device_ms(lambda: _k4_grads(p, rows, mask, gs, stages))
+    plain_ms = device_ms(lambda: _k4_grads(p, rows, mask, gs, stages))[0]
     plain_wall_ms = time_ms(lambda: _k4_grads(p, rows, mask, gs, stages), 20)
-    closed_ms = device_ms(lambda: k4.conv_score_plain(p, *rows, mask)[1](gs))
+    closed_ms = device_ms(
+        lambda: k4.conv_score_plain(p, *rows, mask)[1](gs))[0]
     worst = max(err.values())
-    log(f"[K4] ({B}, {d}): card {ms:.4f} ms forward and backward (forward "
-        f"{fwd_dev:.4f}; passes "
+    log(f"[K4] ({B}, {d}): card {ms:.4f} ms (profiler) forward and backward "
+        f"(forward {fwd_dev:.4f}; passes "
         f"{', '.join(f'{k} {v:.4f}' for k, v in passes.items())}; wall "
         f"{wall_ms:.4f}, through conv_score and autograd {wrapper_ms:.4f}), "
         f"bound {bound_ms:.4f} ms ({100 * bound_ms / ms:.1f}%; "
@@ -756,16 +722,11 @@ def phase_conv_score(dev, peaks):
     row (compared, not timed)."""
     import torch
 
-    from multike_tpu_torch.kernels import conv_score as k4
-
     main, wide = (_k4_case(dev, peaks, B, d) for B, d in K4_STEPS)
     for B, d in ((4097, 75), (1, 75)):
         p, rows, mask, gs = k4_inputs(dev, B, d, 1)
-        s, g = _k4_grads(p, rows, mask, gs)
-        want_s, back = k4.conv_score_plain(
-            {k: x.double() for k, x in p.items()},
-            *(x.double() for x in rows), mask.double())
-        err = _k4_errors(s, g, want_s, back(gs.double()))
+        err = _k4_errors(*_k4_grads(p, rows, mask, gs),
+                         *_k4_plain64(p, rows, mask, gs))
         torch.cuda.synchronize()
         check(max(err.values()) <= 2e-5, f"K4 ({B}, {d}): {err}")
         log(f"[K4] ({B}, {d}): worst error {max(err.values()):.2e}")
@@ -773,6 +734,7 @@ def phase_conv_score(dev, peaks):
                 source="multike_tpu_torch/csrc/conv_score_kernel.cu",
                 replaces=None,
                 wrapper="multike_tpu_torch.views.attr_conv.conv_score",
+                timer="profiler",
                 max_rel_err=max(main["max_rel_err"], wide["max_rel_err"]),
                 ms=main["ms"], plain_ms=main["plain_ms"],
                 bound_ms=main["bound_ms"], bound_by="operations",
@@ -782,28 +744,19 @@ def phase_conv_score(dev, peaks):
 
 def phase_k1_of(dev, peaks, root, seed=0, **sizes):
     """``sparse_adagrad.row_apply`` of the package under ``root`` at each
-    step of ``k1_steps``, timed as phase 2 times K1, and, where that package
-    has them, its ``dedup_rows`` and the fused apply of (loc, gsum) that
-    earlier versions launched after it."""
-    from multike_tpu_torch.kernels import apply_kernel as ak
+    step of ``k1_steps``, timed as phase 2 times K1 (CUDA events)."""
+    from gpubench.lib import bounds
     from multike_tpu_torch.train import sparse_adagrad
 
-    fused = getattr(ak, "fused_row_adagrad", None)
     out = {}
     for label, ids, rows, d in k1_steps(dev, seed=seed, **sizes):
         param, acc, g_rows = _k1_inputs(dev, ids, rows, d, seed)
         U = int(ids.unique().numel())
         rec = dict(rows=rows, d=d, ids=ids.shape[0], unique=U,
-                   bound_ms=k1_bound_ms(ids.shape[0], U, d, peaks[0]))
+                   bound_ms=bounds.k1_bytes(ids.shape[0], U, d) / peaks[0]
+                   * 1e3)
         rec["row_apply_ms"] = time_ms(lambda: sparse_adagrad.row_apply(
             param, acc, ids, g_rows, 0.001), 20)
-        if fused is not None:
-            loc, gsum = sparse_adagrad.dedup_rows(ids, g_rows, rows)
-            gsum = gsum.contiguous()
-            rec["dedup_ms"] = time_ms(lambda: sparse_adagrad.dedup_rows(
-                ids, g_rows, rows), 20)
-            rec["fused_apply_ms"] = time_ms(lambda: fused(
-                param, acc, loc, gsum, 0.001), 20)
         log(f"[K1-of] {label} step: " + ", ".join(
             f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
             for k, v in rec.items()))
@@ -878,6 +831,7 @@ def _rank_shape(dev, peaks, n1, n2, d, reps, seed, clock_calls=0,
     slots at that clock that the kernel's products fill."""
     import torch
 
+    from gpubench.lib import bounds
     from multike_tpu_torch.kernels import rank_kernel as rk
 
     kw = {} if path is None else {"_path": path}
@@ -894,12 +848,11 @@ def _rank_shape(dev, peaks, n1, n2, d, reps, seed, clock_calls=0,
     plain_ms = time_ms(lambda: rk.rank_count_plain(e1, gold, gidx, e2),
                        max(3, reps // 4)) if time_plain else None
     library_ms = time_ms(lambda: torch.matmul(e1, e2.T), max(3, reps // 2))
-    flops = 2.0 * n1 * n2 * d
+    flops = bounds.k2_ops(n1, n2, d)
     nbytes = (n1 + n2) * d * 4 + n1 * 8 + n1 * 12
     mem_rate, fp32_rate = peaks
     bound_ms = max(flops / fp32_rate, nbytes / mem_rate) * 1e3
-    # (an earlier version of the package, under --k2-of, may have no plan)
-    geo = rk.plan(n1, n2, d, device=dev, **kw) if hasattr(rk, "plan") else {}
+    geo = rk.plan(n1, n2, d, device=dev, **kw)
     if clock_calls:
         clk = clocks_under_load(lambda: rk.rank_count(e1, gold, gidx, e2),
                                 clock_calls)
@@ -912,15 +865,11 @@ def _rank_shape(dev, peaks, n1, n2, d, reps, seed, clock_calls=0,
         f"{fp32_rate / 1e12:.0f} TFLOP/s fp32); "
         + (f"plain {plain_ms:.4f} ms; " if time_plain else "")
         + f"torch.matmul alone {library_ms:.4f} ms")
-    if "tiles" in geo:
-        log(f"[K2]   {geo['tiles']} tiles of 128x128 on {geo['ctas']} CTAs "
-            f"({geo['resident']} resident slots"
-            + (f", {geo['ctas_per_sm']} per SM" if "ctas_per_sm" in geo
-               else "")
-            + f", {geo['waves']} wave, {geo['tiles_per_cta_min']}-"
-            f"{geo['tiles_per_cta_max']} tiles per CTA, {geo['smem']} B "
-            "shared memory each)"
-            + (f"; {geo['path']} plan" if "path" in geo else ""))
+    log(f"[K2]   {geo['tiles']} tiles of 128x128 on {geo['ctas']} CTAs "
+        f"({geo['resident']} resident slots, {geo['ctas_per_sm']} per SM, "
+        f"{geo['waves']} wave, {geo['tiles_per_cta_min']}-"
+        f"{geo['tiles_per_cta_max']} tiles per CTA, {geo['smem']} B shared "
+        f"memory each); {geo['path']} plan")
     log(f"[K2]   count mismatches {c_mis}, "
         f"argmax mismatches {i_mis}, all on {ties} rows within 1e-6 of a "
         f"tie; best_val max_abs_err {err:.3e}; mean rank "
@@ -968,6 +917,7 @@ def phase_rank(dev, peaks, d=75, csls_n=(5_000, 10_000), csls_k=10):
     return dict(name="rank_count", route="cuda",
                 source="multike_tpu_torch/csrc/rank_kernel.cu",
                 replaces="multike_tpu/kernels/rank_kernel.py:112",
+                timer="events",
                 max_abs_err=max([cerr] + [x["max_abs_err"] for x in shapes]),
                 ms=big["ms"], plain_ms=big["plain_ms"],
                 bound_ms=big["bound_ms"], bound_by="operations",
@@ -1139,77 +1089,20 @@ def check_against_cpu(trainer, emb):
         f"(loss {l_card:.6f} vs {l_cpu:.6f})")
 
 
-def phase_throughput(dev, card, n_ent=100_000, batch=80_000, epochs=10):
-    """rel_view epochs at bench.py's shape (row-sparse, so through K1)."""
-    import numpy as np
-    import torch
-
-    from multike_tpu_torch.config import Config
-    from multike_tpu_torch.kernels import apply_kernel as ak
-    from multike_tpu_torch.params import init_params
-    from multike_tpu_torch.train import streams
-
-    rng = np.random.RandomState(7)
-    n_tri, n_rel = 6 * n_ent, 500
-    t1 = torch.as_tensor(bench_triples(rng, n_tri, 0, n_ent, n_rel, 0),
-                         device=dev)
-    t2 = torch.as_tensor(bench_triples(rng, n_tri, n_ent, 2 * n_ent, n_rel,
-                                       n_rel), device=dev)
-    cfg = Config(dim=75, batch_size=batch, neg_triple_num=10,
-                 row_sparse_updates=True)
-    params = init_params(cfg, 2 * n_ent, 2 * n_rel, 2, device=dev)
-    opt = streams.init_stream_opt_states(cfg, params)["rel_view"]
-    epoch, steps, trained = streams.build_rel_view_epoch(
-        cfg, n_tri, n_tri, ((0, n_ent), (n_ent, 2 * n_ent)))
-    gen = torch.Generator(device=dev).manual_seed(0)
-    loss = float(epoch(params, opt, gen, t1, t2))      # warm-up epoch
-    launches0 = ak.launches
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(epochs):
-        loss = float(epoch(params, opt, gen, t1, t2))
-    dt = time.perf_counter() - t0
-    check(np.isfinite(loss), f"throughput epoch loss {loss}")
-    per_epoch = (ak.launches - launches0) / epochs
-    tps = trained * epochs / dt
-    log(f"[rate] rel_view at bench shape ({n_ent} entities, {n_tri} triples "
-        f"per KG, batch {batch}, {steps} steps/epoch, K1 launches/epoch "
-        f"{per_epoch:g}): {epochs} epochs in {dt:.3f} s -> {tps:,.0f} "
-        f"triples/s on {card}")
-    busy = profile_epoch(lambda: float(epoch(params, opt, gen, t1, t2)),
-                         dt / epochs * 1e3)
-    return dict(triples_per_s=tps, seconds_per_epoch=dt / epochs,
-                steps_per_epoch=steps, k1_launches_per_epoch=per_epoch,
-                **busy)
-
-
-def dwy100k_neighbors(ranges, seed=3):
-    """bench.py's DWY100K-shaped neighbor state (bench.py:218-227): 30% of
-    each KG's entities have a row of k = 2% of the KG's size, drawn
-    uniformly from the KG."""
-    import numpy as np
-
-    rng = np.random.RandomState(seed)
-    parts = []
-    for lo, hi in ranges:
-        n_useful, k = (hi - lo) * 3 // 10, max(1, (hi - lo) // 50)
-        useful = lo + rng.permutation(hi - lo)[:n_useful]
-        nbr = lo + rng.randint(0, hi - lo, size=(n_useful, k))
-        parts.append((useful.astype(np.int64), nbr.astype(np.int32)))
-    return parts
-
-
-def phase_parity(dev, card, n_ent=100_000, epochs=2):
+def phase_parity(dev, n_ent=100_000, epochs=2):
     """bench.py's reference-parity row (bench.py:398-416) on the card:
     batch 5000, per_slot negatives in both phases, Bloom "drop" rejection
     over both KGs' triples; uniform, then truncated with the DWY100K-shaped
-    neighbor table. Row-sparse on, as in phase 5, so K1 runs at the
-    per-slot step's shape. Last, one uniform epoch with "resample"
-    rejection instead: each step draws its own candidates and redraws the
-    ones that test positive, with a host sync after every round."""
+    neighbor table (``gpubench.lib.data.neighbor_parts``). Row-sparse on,
+    so K1 runs at the per-slot step's shape. Last, one uniform epoch with
+    "resample" rejection instead: each step draws its own candidates and
+    redraws the ones that test positive, with a host sync after every
+    round. Each epoch's loss must be finite and K1 must launch; the drop
+    shares and the Bloom passes a step are reported."""
     import numpy as np
     import torch
 
+    from gpubench.lib import data
     from multike_tpu_torch import sampling
     from multike_tpu_torch.config import Config
     from multike_tpu_torch.kernels import apply_kernel as ak
@@ -1218,10 +1111,8 @@ def phase_parity(dev, card, n_ent=100_000, epochs=2):
                                             build_triple_filter)
     from multike_tpu_torch.train import streams
 
-    rng = np.random.RandomState(7)
     n_tri, n_rel = 6 * n_ent, 500
-    tr1 = bench_triples(rng, n_tri, 0, n_ent, n_rel, 0)
-    tr2 = bench_triples(rng, n_tri, n_ent, 2 * n_ent, n_rel, n_rel)
+    tr1, tr2 = data.kg_pair_triples(7, n_ent, (n_tri, n_tri), (n_rel, n_rel))
     t1, t2 = (torch.as_tensor(t, device=dev) for t in (tr1, tr2))
     cfg = Config(dim=75, batch_size=5000, neg_triple_num=10,
                  neg_scheme="per_slot", truncated_neg_scheme="per_slot",
@@ -1229,162 +1120,51 @@ def phase_parity(dev, card, n_ent=100_000, epochs=2):
     check(cfg.neg_rejection_tries > 0 and cfg.neg_reject_mode == "drop",
           "the parity row rejects true triples by Bloom drop")
     ranges = ((0, n_ent), (n_ent, 2 * n_ent))
-    t0 = time.time()
     tfilter = build_triple_filter(np.concatenate([tr1, tr2]), device=dev)
-    neighbors = build_neighbor_state(2 * n_ent, dwy100k_neighbors(ranges),
-                                     device=dev)
-    torch.cuda.synchronize()
-    setup_s = time.time() - t0
+    neighbors = build_neighbor_state(
+        2 * n_ent, data.neighbor_parts(3, ranges, 0.3, n_ent // 50, dev),
+        device=dev)
     params = init_params(cfg, 2 * n_ent, 2 * n_rel, 2, device=dev)
     opt = streams.init_stream_opt_states(cfg, params)["rel_view"]
     gen = torch.Generator(device=dev).manual_seed(0)
-    out = {"filter_and_neighbors_s": setup_s}
+    out = {}
     for phase, with_nbr, mode, runs in (
             ("uniform", False, "drop", epochs),
             ("truncated", True, "drop", epochs),
             ("uniform_resample", False, "resample", 1)):
-        epoch, steps, trained = streams.build_rel_view_epoch(
+        epoch, steps, _ = streams.build_rel_view_epoch(
             cfg.replace(neg_reject_mode=mode), n_tri, n_tri, ranges,
             with_neighbors=with_nbr, tfilter=tfilter)
         check(epoch.scheme == "per_slot"
               and epoch.presample == (mode == "drop"),
               "the parity row presamples per-slot draws, unless resampling")
-        if mode == "drop":
-            float(epoch(params, opt, gen, t1, t2, neighbors))   # warm-up
         launches0, dropped = ak.launches, 0.0
         rounds = []                        # Bloom passes, one sync each
         hits = sampling._slot_hits
         sampling._slot_hits = lambda *a: rounds.append(1) or hits(*a)
         try:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
             for _ in range(runs):
                 loss = float(epoch(params, opt, gen, t1, t2, neighbors))
+                check(np.isfinite(loss), f"parity {phase} epoch loss {loss}")
                 if epoch.dropped is not None:
                     dropped += float(epoch.dropped)
-            dt = time.perf_counter() - t0
         finally:
             sampling._slot_hits = hits
-        check(np.isfinite(loss), f"parity {phase} epoch loss {loss}")
-        rec = dict(triples_per_s=trained * runs / dt,
-                   seconds_per_epoch=dt / runs, steps_per_epoch=steps,
+        rec = dict(steps_per_epoch=steps,
                    k1_launches_per_epoch=(ak.launches - launches0) / runs,
                    dropped_share=dropped / (epoch.slots * runs)
                    if mode == "drop" else None,
                    bloom_passes_per_step=len(rounds) / (steps * runs))
+        check(rec["k1_launches_per_epoch"] > 0, f"K1 did not launch in the "
+              f"parity row's {phase} epochs")
         log(f"[parity] {phase}: batch 5000, per_slot, Bloom {mode}"
             + (f" ({100 * rec['dropped_share']:.3f}% of slots dropped)"
                if mode == "drop" else "")
             + f", {steps} steps/epoch, {rec['bloom_passes_per_step']:g} "
-            f"Bloom passes a step: {runs} epochs in {dt:.3f} s -> "
-            f"{rec['triples_per_s']:,.0f} triples/s on {card}")
-        if phase == "truncated":
-            rec.update(profile_epoch(
-                lambda: float(epoch(params, opt, gen, t1, t2, neighbors)),
-                dt / epochs * 1e3))
+            f"Bloom passes a step, {rec['k1_launches_per_epoch']:g} K1 "
+            f"launches an epoch: {runs} epochs, losses finite")
         out[phase] = rec
     return out
-
-
-APPLY_RANGE = "row_apply"      # profiler range around sparse_adagrad.row_apply
-
-
-def profile_epoch(run_epoch, epoch_ms: float, top: int = 8):
-    """One epoch under torch.profiler: the device's busy time (union of
-    kernel and copy intervals), its share of the profiled epoch's wall time
-    and of ``epoch_ms``, the same epoch's time without the profiler (which
-    slows the host, not the device), the kernels that take the most device
-    time, and the sort kernels by the op that launched them
-    (``sort_kernels``). ``sparse_adagrad.row_apply`` runs inside a
-    ``row_apply`` range, so a sort that the optimizer step launches shows
-    as such."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    from multike_tpu_torch.train import sparse_adagrad
-
-    apply = sparse_adagrad.row_apply
-
-    def tagged(*a, **kw):
-        with record_function(APPLY_RANGE):
-            return apply(*a, **kw)
-
-    torch.cuda.synchronize()
-    sparse_adagrad.row_apply = tagged
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run_epoch()
-            wall_us = (time.perf_counter() - t0) * 1e6
-    finally:
-        sparse_adagrad.row_apply = apply
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA
-                   and e.name != APPLY_RANGE)   # the range's device span
-    if not spans:
-        log("[prof] the profiler saw no device activity: busy share not "
-            "measured")
-        return {"device_busy_share": None}
-    busy_us, end = 0.0, -1.0
-    by_name = {}
-    for s, e, name in spans:
-        busy_us += max(0.0, e - max(s, end))
-        end = max(end, e)
-        by_name[name] = by_name.get(name, 0.0) + (e - s)
-    share = busy_us / 1e3 / epoch_ms
-    log(f"[prof] one epoch: device busy {busy_us / 1e3:.2f} ms = "
-        f"{100 * share:.1f}% of the unprofiled epoch ({epoch_ms:.2f} ms), "
-        f"{100 * busy_us / wall_us:.1f}% of the profiled one "
-        f"({wall_us / 1e3:.2f} ms); {len(spans)} device ops")
-    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
-    for name, us in ranked:
-        log(f"[prof]   {us / 1e3:8.3f} ms  {name[:100]}")
-    sorts = sort_kernels(prof)
-    log(f"[prof] sort kernels: {sorts['kernels']} in {sorts['ms']:.3f} ms, "
-        f"{sorts['in_row_apply']} of them under row_apply, "
-        f"{sorts['in_randperm']} under aten::randperm")
-    for g in sorts["by_op"]:
-        log(f"[prof]   {g['kernels']:5d} kernels {g['ms']:8.3f} ms  "
-            f"{' < '.join(g['stack'])}")
-    return {"device_busy_share": share, "device_busy_ms": busy_us / 1e3,
-            "profiled_wall_ms": wall_us / 1e3,
-            "top_device_ms": {n[:100]: us / 1e3 for n, us in ranked},
-            "sort_kernels": sorts}
-
-
-def sort_kernels(prof) -> dict:
-    """The device kernels whose name holds "sort" (cub's radix sort
-    kernels, which ``torch.sort``, ``unique`` and ``randperm`` launch),
-    grouped by the stack of ops (innermost first, up to the outermost
-    three) that launched them."""
-    groups = {}
-    for e in prof.events():
-        ks = [k for k in getattr(e, "kernels", ())
-              if "sort" in k.name.lower()]
-        if not ks:
-            continue
-        stack, up = [], e
-        while up is not None:
-            stack.append(up.name)
-            up = up.cpu_parent
-        key = tuple(stack[:1] + stack[1:][-3:])
-        g = groups.setdefault(key, {"stack": list(key), "kernels": 0,
-                                    "ms": 0.0, "row_apply": False,
-                                    "randperm": False})
-        g["kernels"] += len(ks)
-        g["ms"] += sum(k.duration for k in ks) / 1e3
-        g["row_apply"] |= APPLY_RANGE in stack
-        g["randperm"] |= "aten::randperm" in stack
-    by_op = sorted(groups.values(), key=lambda g: -g["ms"])
-    return dict(kernels=sum(g["kernels"] for g in by_op),
-                ms=sum(g["ms"] for g in by_op),
-                in_row_apply=sum(g["kernels"] for g in by_op
-                                 if g["row_apply"]),
-                in_randperm=sum(g["kernels"] for g in by_op
-                                if g["randperm"]),
-                by_op=by_op)
 
 
 # The trainer's epoch method of each ITC stream.
@@ -1402,26 +1182,87 @@ ITC_STREAMS = {
 def _count_launches(fn, into: dict, key: str):
     """``fn`` wrapped to add the kernels' launches and the seconds of each
     call under ``key``."""
-    from multike_tpu_torch.kernels import apply_kernel as ak
-    from multike_tpu_torch.kernels import chunk_loss as ck
-    from multike_tpu_torch.kernels import conv_score as k4
-    from multike_tpu_torch.kernels import rank_kernel as rk
-
     def wrapped(*a, **kw):
-        k1, k2, k3, t0 = ak.launches, rk.launches, ck.launches, time.time()
-        k4_n = k4.launches
+        before, t0 = _launches(), time.time()
         out = fn(*a, **kw)
-        rec = into.setdefault(key, {"calls": 0, "fused_row_adagrad": 0,
-                                    "rank_count": 0, "chunk_loss": 0,
-                                    "conv_score": 0, "seconds": []})
+        rec = into.setdefault(key, {"calls": 0, **dict.fromkeys(before, 0),
+                                    "seconds": []})
         rec["calls"] += 1
-        rec["fused_row_adagrad"] += ak.launches - k1
-        rec["rank_count"] += rk.launches - k2
-        rec["chunk_loss"] += ck.launches - k3
-        rec["conv_score"] += k4.launches - k4_n
+        for name, n in _launches().items():
+            rec[name] += n - before[name]
         rec["seconds"].append(time.time() - t0)
         return out
     return wrapped
+
+
+def run_driver(model, stream_methods: dict, evals):
+    """``model.run()`` with each stream's epoch method (``stream_methods``:
+    stream -> trainer method) and each function of ``eval.views`` named in
+    ``evals`` counting the kernels' launches and its seconds. Returns (test
+    MRRs, seconds, launches, by stream, by evaluation)."""
+    from multike_tpu_torch.eval import views
+
+    by_stream, by_eval = {}, {}
+    for stream, meth in stream_methods.items():
+        setattr(model, meth, _count_launches(getattr(model, meth), by_stream,
+                                             stream))
+    saved = {f: getattr(views, f) for f in evals}
+    for f in evals:
+        setattr(views, f, _count_launches(saved[f], by_eval, f))
+    try:
+        _zero_launches()
+        t0 = time.time()
+        results = model.run()
+        run_s = time.time() - t0
+        launches = _launches()
+    finally:
+        for f in evals:
+            setattr(views, f, saved[f])
+    return results, run_s, launches, by_stream, by_eval
+
+
+def check_driver_run(model, driver: str, stream_methods: dict, launches,
+                     by_stream, by_eval) -> dict:
+    """What both drivers' runs must show: every stream ran with finite
+    losses and launched K1, K4 only in the three attribute streams, K2 once
+    per evaluation, K1 nowhere but in the streams, and the embeddings saved
+    under ``<output>/<driver>/``. Returns each stream's epochs, seconds and
+    K1 launches."""
+    import numpy as np
+
+    from multike_tpu_torch.persistence import EMBEDDING_FILES, ID_FILES
+
+    recs = model.metrics.records
+    streams_s = {}
+    for stream in stream_methods:
+        rs = [r for r in recs if r.get("stream") == stream]
+        check(rs and all(np.isfinite(r["loss"]) for r in rs),
+              f"{stream}: no epoch or a loss that is not finite")
+        check(by_stream[stream]["fused_row_adagrad"] > 0,
+              f"K1 did not launch in {stream}")
+        check((by_stream[stream]["conv_score"] > 0)
+              == (stream in ("attr_view", "ckge_attr", "ckga_attr")),
+              f"K4 launched {by_stream[stream]['conv_score']} times in "
+              f"{stream}: it scores the three attribute streams only")
+        secs = [r["seconds"] for r in rs]
+        streams_s[stream] = {"epochs": len(rs), "first_s": secs[0],
+                             "mean_later_s": float(np.mean(secs[1:]))
+                             if len(secs) > 1 else None,
+                             "k1_launches": by_stream[stream][
+                                 "fused_row_adagrad"]}
+    evals = sum(r["calls"] for r in by_eval.values())
+    check(launches["rank_count"] == evals > 0,
+          f"K2 launches {launches['rank_count']} for {evals} evaluations: "
+          f"{by_eval}")
+    check(launches["fused_row_adagrad"] == sum(
+        r["fused_row_adagrad"] for r in by_stream.values()),
+        "K1 launched outside the streams")
+    runs = sorted(glob.glob(os.path.join(model.cfg.output, driver, "*",
+                                         "*")))
+    check(runs and set(os.listdir(runs[-1])) >= {
+        f + ".npy" for f in EMBEDDING_FILES} | set(ID_FILES),
+        "the saved embeddings are missing")
+    return streams_s
 
 
 def driver_config(n, mode, dim, batch, epochs, **kw):
@@ -1453,7 +1294,6 @@ def phase_itc(dev, n=20_000, dim=75, batch=5000, epochs=10, cpu_rows=256):
     from multike_tpu_torch.align.predicates import PredicateAlignModel
     from multike_tpu_torch.data.dataset import DataModel
     from multike_tpu_torch.eval import views
-    from multike_tpu_torch.persistence import EMBEDDING_FILES, ID_FILES
     from multike_tpu_torch.train.itc import MultiKE_ITC
 
     cfg = driver_config(n, "itc", dim, batch, epochs)
@@ -1470,50 +1310,16 @@ def phase_itc(dev, n=20_000, dim=75, batch=5000, epochs=10, cpu_rows=256):
 
     model = MultiKE_ITC(cfg, data, pam, verbose=True, device=dev)
     before = {v: views.valid(model, v) for v in ("rv", "final")}
-    by_stream, by_eval = {}, {}
-    for stream, meth in ITC_STREAMS.items():
-        setattr(model, meth, _count_launches(getattr(model, meth), by_stream,
-                                             stream))
-    saved = views.valid_metrics, views.test
-    views.valid_metrics = _count_launches(saved[0], by_eval, "valid")
-    views.test = _count_launches(saved[1], by_eval, "test")
-    try:
-        _zero_launches()
-        t0 = time.time()
-        results = model.run()
-        run_s = time.time() - t0
-        launches = _launches()
-    finally:
-        views.valid_metrics, views.test = saved
+    results, run_s, launches, by_stream, by_eval = run_driver(
+        model, ITC_STREAMS, ("valid_metrics", "test"))
     after = {v: views.valid(model, v) for v in ("rv", "final")}
     log(f"[itc] {epochs} epochs in {run_s:.1f} s; valid MRR before -> "
         f"after: rv {before['rv']:.4f} -> {after['rv']:.4f}, final "
         f"{before['final']:.4f} -> {after['final']:.4f}; test MRR {results}")
 
+    streams_s = check_driver_run(model, "MultiKE_ITC", ITC_STREAMS, launches,
+                                 by_stream, by_eval)
     recs = model.metrics.records
-    streams_s = {}
-    for stream in ITC_STREAMS:
-        rs = [r for r in recs if r.get("stream") == stream]
-        check(rs and all(np.isfinite(r["loss"]) for r in rs),
-              f"{stream}: no epoch or a loss that is not finite")
-        check(by_stream[stream]["fused_row_adagrad"] > 0,
-              f"K1 did not launch in {stream}")
-        check((by_stream[stream]["conv_score"] > 0)
-              == (stream in ("attr_view", "ckge_attr", "ckga_attr")),
-              f"K4 launched {by_stream[stream]['conv_score']} times in "
-              f"{stream}: it scores the three attribute streams only")
-        secs = [r["seconds"] for r in rs]
-        streams_s[stream] = {"epochs": len(rs), "first_s": secs[0],
-                             "mean_later_s": float(np.mean(secs[1:]))
-                             if len(secs) > 1 else None,
-                             "k1_launches": by_stream[stream][
-                                 "fused_row_adagrad"]}
-    evals = sum(r["calls"] for r in by_eval.values())
-    check(launches["rank_count"] == evals > 0,
-          f"K2 launches {launches['rank_count']} for {evals} evaluations")
-    check(launches["fused_row_adagrad"] == sum(
-        r["fused_row_adagrad"] for r in by_stream.values()),
-        "K1 launched outside the streams")
     refresh = [r for r in recs if r.get("stream") == "neighbors"]
     rel = [r for r in recs if r.get("stream") == "rel_view"]
     check(refresh and any(r["truncated"] for r in rel),
@@ -1523,19 +1329,7 @@ def phase_itc(dev, n=20_000, dim=75, batch=5000, epochs=10, cpu_rows=256):
     check(set(results) == {"nv", "rv", "av", "final"}
           and all(np.isfinite(v) for v in results.values()),
           f"test MRRs {results}")
-    runs = sorted(glob.glob(os.path.join(cfg.output, "MultiKE_ITC", "*",
-                                         "*")))
-    check(runs and set(os.listdir(runs[-1])) >= {
-        f + ".npy" for f in EMBEDDING_FILES} | set(ID_FILES),
-        "the saved embeddings are missing")
     cpu = check_itc_against_cpu(model, cpu_rows)
-    busy = profile_driver_epoch(model, ITC_STREAMS, epochs + 1,
-                                sum(r["seconds"] for r in recs
-                                    if r.get("epoch") == epochs
-                                    and r["stream"] in ITC_STREAMS) * 1e3)
-    check(busy.get("sort_kernels", {}).get("in_row_apply", 0) == 0,
-          "the optimizer step launched a sort: "
-          f"{busy.get('sort_kernels')}")
 
     numbers = dict(
         entities_per_kg=n, dim=dim, batch=batch, epochs=epochs,
@@ -1548,7 +1342,7 @@ def phase_itc(dev, n=20_000, dim=75, batch=5000, epochs=10, cpu_rows=256):
                    "ms": [1e3 * x for x in r["seconds"]]}
                for k, r in by_eval.items()},
         valid_before=before, valid_after=after, test_mrr=results,
-        launches=launches, card_vs_cpu=cpu, profiled_epoch=busy)
+        launches=launches, card_vs_cpu=cpu)
     log(f"[itc] {json.dumps(numbers)}")
     return launches, numbers, data
 
@@ -1601,34 +1395,6 @@ def check_host_helpers(pam, cfg) -> dict:
     out["vec"] = {"words": len(got), "built_s": built_s, "python_s": py_s}
     log(f"[itc] host helpers: {json.dumps(out)}")
     return out
-
-
-def profile_driver_epoch(model, stream_methods, epoch: int, epoch_ms: float):
-    """One more epoch of the driver's streams (``stream_methods``: stream ->
-    trainer method), as the driver runs them after the soft-alignment
-    start, under torch.profiler (``profile_epoch``); ``epoch_ms`` is the
-    unprofiled time of the run's last epoch."""
-    kgs, pam = model.kgs, model.predicate_align_model
-    args = {
-        "rel_view": (),
-        "ckge_rel": (kgs.kg1.sup_relation_triples_list
-                     + kgs.kg2.sup_relation_triples_list,),
-        "ckgp_rel": (pam.sup_relation_alignment_triples1
-                     + pam.sup_relation_alignment_triples2,),
-        "attr_view": (),
-        "ckge_attr": (kgs.kg1.sup_attribute_triples_list
-                      + kgs.kg2.sup_attribute_triples_list,),
-        "ckga_attr": (pam.sup_attribute_alignment_triples1
-                      + pam.sup_attribute_alignment_triples2,),
-        "common_space": (kgs.kg1.entities_list + kgs.kg2.entities_list,),
-    }
-
-    def run_epoch():
-        for stream, meth in stream_methods.items():
-            getattr(model, meth)(epoch, *args[stream])
-
-    run_epoch()                    # uploads the lists this epoch builds
-    return profile_epoch(run_epoch, epoch_ms)
 
 
 def _copy_to(tree, dev):
@@ -1740,7 +1506,6 @@ def phase_ssl(dev, data, n=20_000, dim=75, batch=5000, epochs=10):
 
     from multike_tpu_torch.align.predicates import PredicateAlignModel
     from multike_tpu_torch.eval import views
-    from multike_tpu_torch.persistence import EMBEDDING_FILES, ID_FILES
     from multike_tpu_torch.train.ssl import MultiKE_SSL
 
     cfg = driver_config(n, "ssl", dim, batch, epochs,
@@ -1756,56 +1521,21 @@ def phase_ssl(dev, data, n=20_000, dim=75, batch=5000, epochs=10):
     # phase 1 does not train `ent`, so `final` before the run is `final`
     # before phase 2
     before = {v: views.valid(model, v) for v in ("rv", "avg", "final")}
-    by_stream, by_eval = {}, {}
-    for stream, meth in SSL_STREAMS.items():
-        setattr(model, meth, _count_launches(getattr(model, meth), by_stream,
-                                             stream))
-    saved = {f: getattr(views, f) for f in SSL_EVALS}
-    for f in SSL_EVALS:
-        setattr(views, f, _count_launches(saved[f], by_eval, f))
-    try:
-        _zero_launches()
-        t0 = time.time()
-        results = model.run()
-        run_s = time.time() - t0
-        launches = _launches()
-    finally:
-        for f in SSL_EVALS:
-            setattr(views, f, saved[f])
+    results, run_s, launches, by_stream, by_eval = run_driver(
+        model, SSL_STREAMS, SSL_EVALS)
     after = {v: views.valid(model, v) for v in ("rv", "avg", "final")}
     log(f"[ssl] {epochs} + {epochs} epochs in {run_s:.1f} s; valid MRR "
         f"before -> after: " + ", ".join(
             f"{v} {before[v]:.4f} -> {after[v]:.4f}" for v in before)
         + f"; test MRR {results}")
 
-    recs = model.metrics.records
-    streams_s = {}
-    for stream in SSL_STREAMS:
-        rs = [r for r in recs if r.get("stream") == stream]
-        check(rs and all(np.isfinite(r["loss"]) for r in rs),
-              f"{stream}: no epoch or a loss that is not finite")
-        check(by_stream[stream]["fused_row_adagrad"] > 0,
-              f"K1 did not launch in {stream}")
-        check((by_stream[stream]["conv_score"] > 0)
-              == (stream in ("attr_view", "ckge_attr", "ckga_attr")),
-              f"K4 launched {by_stream[stream]['conv_score']} times in "
-              f"{stream}: it scores the three attribute streams only")
-        secs = [r["seconds"] for r in rs]
-        streams_s[stream] = {"epochs": len(rs), "first_s": secs[0],
-                             "mean_later_s": float(np.mean(secs[1:]))
-                             if len(secs) > 1 else None,
-                             "k1_launches": by_stream[stream][
-                                 "fused_row_adagrad"]}
-    evals = sum(r["calls"] for r in by_eval.values())
-    check(launches["rank_count"] == evals > 0 and all(
-        r["rank_count"] == r["calls"] for r in by_eval.values()),
-        f"K2 launches {launches['rank_count']} for {evals} evaluations: "
-        f"{by_eval}")
+    streams_s = check_driver_run(model, "MultiKE_SSL", SSL_STREAMS, launches,
+                                 by_stream, by_eval)
+    check(all(r["rank_count"] == r["calls"] for r in by_eval.values()),
+          f"K2 launches by evaluation: {by_eval}")
     check(by_eval["valid_WVA"]["calls"] == 1 and
           by_eval["test_WVA"]["calls"] == 1, "WVA was not evaluated")
-    check(launches["fused_row_adagrad"] == sum(
-        r["fused_row_adagrad"] for r in by_stream.values()),
-        "K1 launched outside the streams")
+    recs = model.metrics.records
     rel = [r for r in recs if r.get("stream") == "rel_view"]
     check(all(r["scheme"] == "per_slot" for r in rel)
           and {r["truncated"] for r in rel} == {False, True},
@@ -1820,20 +1550,7 @@ def phase_ssl(dev, data, n=20_000, dim=75, batch=5000, epochs=10):
     check(set(results) == {"nv", "rv", "av", "avg", "wva", "final"}
           and all(np.isfinite(v) for v in results.values()),
           f"test MRRs {results}")
-    runs = sorted(glob.glob(os.path.join(cfg.output, "MultiKE_SSL", "*",
-                                         "*")))
-    check(runs and set(os.listdir(runs[-1])) >= {
-        f + ".npy" for f in EMBEDDING_FILES} | set(ID_FILES),
-        "the saved embeddings are missing")
     cpu = check_ssl_against_cpu(model)
-    phase1 = {k: v for k, v in SSL_STREAMS.items() if k != "space_mapping"}
-    busy = profile_driver_epoch(model, phase1, epochs + 1,
-                                sum(r["seconds"] for r in recs
-                                    if r.get("epoch") == epochs
-                                    and r["stream"] in phase1) * 1e3)
-    check(busy.get("sort_kernels", {}).get("in_row_apply", 0) == 0,
-          "the optimizer step launched a sort: "
-          f"{busy.get('sort_kernels')}")
     numbers = dict(
         entities_per_kg=n, dim=dim, batch=batch, epochs=epochs,
         shared_learning_epochs=epochs, predicates_s=predicates_s,
@@ -1845,7 +1562,7 @@ def phase_ssl(dev, data, n=20_000, dim=75, batch=5000, epochs=10):
                    "ms": [1e3 * x for x in r["seconds"]]}
                for k, r in by_eval.items()},
         valid_before=before, valid_after=after, test_mrr=results,
-        launches=launches, card_vs_cpu=cpu, profiled_epoch=busy)
+        launches=launches, card_vs_cpu=cpu)
     log(f"[ssl] {json.dumps(numbers)}")
     return launches, numbers
 
@@ -1986,33 +1703,25 @@ def spawn_ranks(task: str, n: int, spec: dict, timeout: float):
     return results, secs
 
 
-def _launches():
+def _kernel_modules() -> dict:
+    """Each kernel's name in the kernels line -> its wrapper's module, whose
+    ``launches`` counts its launches."""
     from multike_tpu_torch.kernels import apply_kernel as ak
     from multike_tpu_torch.kernels import chunk_loss as ck
     from multike_tpu_torch.kernels import conv_score as k4
     from multike_tpu_torch.kernels import rank_kernel as rk
 
-    return {"fused_row_adagrad": ak.launches, "rank_count": rk.launches,
-            "chunk_loss": ck.launches, "conv_score": k4.launches}
+    return {"fused_row_adagrad": ak, "rank_count": rk, "chunk_loss": ck,
+            "conv_score": k4}
+
+
+def _launches():
+    return {name: m.launches for name, m in _kernel_modules().items()}
 
 
 def _zero_launches():
-    from multike_tpu_torch.kernels import apply_kernel as ak
-    from multike_tpu_torch.kernels import chunk_loss as ck
-    from multike_tpu_torch.kernels import conv_score as k4
-    from multike_tpu_torch.kernels import rank_kernel as rk
-
-    ak.launches = 0
-    rk.launches = 0
-    ck.launches = 0
-    k4.launches = 0
-
-
-def _sync(dev):
-    import torch
-
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    for m in _kernel_modules().values():
+        m.launches = 0
 
 
 def _excess(got, want, rtol, atol) -> float:
@@ -2097,6 +1806,7 @@ def mesh_task_world1(spec):
     from multike_tpu_torch.parallel import distributed, spmd
     from multike_tpu_torch.parallel.context import MeshContext
     from multike_tpu_torch.parallel.mesh import make_mesh
+    from multike_tpu_torch.train import streams
 
     dev = torch.device(spec["device"])
     if dev.type == "cuda":
@@ -2118,7 +1828,8 @@ def mesh_task_world1(spec):
     losses, tables = spmd.run_streams(cfg, pctx, dev, **spec["sizes"])
     ring = [ring_rank_and_align(pctx.dp_group, h1, h2, csls_k=k, device=dev)
             for k in csls]
-    _sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
     secs = time.time() - t0
     launches = _launches()
     transport = distributed.transport(pctx.dp_group)
@@ -2136,7 +1847,8 @@ def mesh_task_world1(spec):
     loss_excess = max(abs(losses[k] - v) - (1e-6 + 1e-5 * abs(v))
                       for k, v in want_losses.items())
     table_excess = {k: max(_excess(a, b, 1e-5, 1e-6) for a, b in zip(
-        _leaves(tables[k]), _leaves(want_tables[k]))) for k in tables}
+        streams._leaves(tables[k]), streams._leaves(want_tables[k])))
+        for k in tables}
     dist.destroy_process_group()
     return dict(transport=transport, launches=launches, seconds=secs,
                 losses=losses, want_losses=want_losses,
@@ -2145,12 +1857,6 @@ def mesh_task_world1(spec):
                                  np.array_equal(a[1], b[1]))
                             for a, b in zip(ring, one)],
                 ring_plain=plain, staged=distributed.staged)
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        return [x for v in tree.values() for x in _leaves(v)]
-    return [tree]
 
 
 def mesh_task_dryrun(spec):
@@ -2294,6 +2000,19 @@ def mesh_rank(task: str, spec_path: str) -> int:
     return 0
 
 
+def cli_files(cfg, folder: str):
+    """``cfg`` as an ``--args`` file in a fresh ``folder``; returns its path
+    and the path of the run's metrics log there."""
+    import dataclasses
+
+    shutil.rmtree(folder, ignore_errors=True)
+    os.makedirs(folder)
+    args = os.path.join(folder, "args.json")
+    with open(args, "w") as f:
+        json.dump(dataclasses.asdict(cfg), f)
+    return args, os.path.join(folder, "metrics.jsonl")
+
+
 def _stream_losses(path):
     """{(stream, epoch): (loss, seconds)} of a metrics log's epochs."""
     recs = {}
@@ -2311,8 +2030,6 @@ def phase_mesh(dev, card, n=20_000, dim=75, batch=5000, epochs=10,
     """Phase 8 (see the module's docstring). Returns the kernels' launches
     summed over the mesh runs' ranks, each run's per rank, and the
     numbers."""
-    import dataclasses
-
     import numpy as np
     import torch
 
@@ -2412,13 +2129,7 @@ def phase_mesh(dev, card, n=20_000, dim=75, batch=5000, epochs=10,
     for label, world in (("one", 1), ("dp2", 2)):
         cfg = driver_config(n, f"mesh_{label}", dim, batch, epochs,
                             retrain_literal_embeds=False)
-        folder = os.path.join(MESH_DIR, f"cli_{label}")
-        shutil.rmtree(folder, ignore_errors=True)
-        os.makedirs(folder)
-        args = os.path.join(folder, "args.json")
-        with open(args, "w") as f:
-            json.dump(dataclasses.asdict(cfg), f)
-        metrics = os.path.join(folder, "metrics.jsonl")
+        args, metrics = cli_files(cfg, os.path.join(MESH_DIR, f"cli_{label}"))
         argv = ["-m", "ITC", "-d", cfg.training_data, "--args", args,
                 "--device", str(dev), "--set", f"metrics_log_path={metrics}"]
         if world > 1:
@@ -2468,8 +2179,7 @@ def phase_mesh(dev, card, n=20_000, dim=75, batch=5000, epochs=10,
                 check(counts[name] > 0, f"{name} did not launch on rank {r} "
                       f"of the mesh run {run}: {by_rank[run]}")
     total = {name: sum(c[name] for runs_ in by_rank.values() for c in runs_)
-             for name in ("fused_row_adagrad", "rank_count", "chunk_loss",
-                          "conv_score")}
+             for name in _kernel_modules()}
     numbers["launches_by_rank"] = by_rank
     log(f"[mesh] {json.dumps(numbers)}")
     return total, by_rank, numbers
@@ -2487,8 +2197,6 @@ WIDE_FLOORS = {"nv": 0.85, "rv": 0.9, "final": 0.12}
 def phase_wide_itc(dev, n=5_000, dim=WIDE_DIM, batch=5000, epochs=3):
     """Phase 9 (see the module's docstring). Returns the kernels' launches
     and the numbers."""
-    import dataclasses
-
     import numpy as np
     import torch
 
@@ -2498,13 +2206,8 @@ def phase_wide_itc(dev, n=5_000, dim=WIDE_DIM, batch=5000, epochs=3):
     from multike_tpu_torch.params import l2_normalize
 
     cfg = driver_config(n, "itc_wide", 75, batch, epochs)
-    folder = os.path.join(REPO, "output", "chip_smoke", "itc_wide")
-    shutil.rmtree(folder, ignore_errors=True)
-    os.makedirs(folder)
-    args = os.path.join(folder, "args.json")
-    with open(args, "w") as f:
-        json.dump(dataclasses.asdict(cfg), f)
-    metrics = os.path.join(folder, "metrics.jsonl")
+    args, metrics = cli_files(cfg, os.path.join(REPO, "output", "chip_smoke",
+                                                "itc_wide"))
     _zero_launches()
     t0 = time.time()
     results = cli.main(["-m", "ITC", "-d", cfg.training_data, "--args", args,
@@ -2586,41 +2289,36 @@ def main() -> int:
         print(f"chip_smoke: the multike_tpu_torch package is not in {root}",
               file=sys.stderr)
         return 2
+    # the benchmark's yardsticks (peaks, bounds, inputs) from this script's
+    # own repo, whichever package DIR holds
+    from gpubench.lib.peaks import card_peaks, power_limit
     sys.path.insert(0, root)
     import multike_tpu_torch  # noqa: F401  (sets the fp32 matmul policy)
 
     t_start = time.time()
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
-    card = card_line()
-    peaks = card_peaks(card)
+    card = power_limit()
+    peaks = card_peaks(card.split(",")[0].strip())
     log(f"[card] {card}; torch {torch.__version__} CUDA {torch.version.cuda}; "
         f"bounds from this part's published peaks: {peaks[0] / 1e12:.2f} "
         f"TB/s, {peaks[1] / 1e12:.0f} TFLOP/s fp32")
 
     phase_build()
-    if args == ["--k3"]:
-        k3 = phase_chunk_loss(dev, peaks)
-        log(f"[done] K3 in {time.time() - t_start:.1f} s")
-        print(json.dumps({"kernels": [k3]}), flush=True)
-        print(card, flush=True)
-        return 0
-    if args == ["--k4"]:
-        k4 = phase_conv_score(dev, peaks)
-        log(f"[done] K4 in {time.time() - t_start:.1f} s")
-        print(json.dumps({"kernels": [k4]}), flush=True)
-        print(card, flush=True)
-        return 0
-    if args and args[0] == "--k1-of":
-        k1 = phase_k1_of(dev, peaks, root)
-        log(f"[done] K1 of {root} in {time.time() - t_start:.1f} s")
-        print(json.dumps({"k1_of": root, "steps": k1}), flush=True)
-        print(card, flush=True)
-        return 0
-    if args:
-        k2 = phase_rank(dev, peaks)
-        log(f"[done] K2 of {root} in {time.time() - t_start:.1f} s")
-        print(json.dumps({"kernels": [k2]}), flush=True)
+    if args:                    # one kernel's phase: its line, the card's
+        what, run = {
+            "--k3": ("K3", lambda: {"kernels": [
+                phase_chunk_loss(dev, peaks)]}),
+            "--k4": ("K4", lambda: {"kernels": [
+                phase_conv_score(dev, peaks)]}),
+            "--k1-of": (f"K1 of {root}", lambda: {
+                "k1_of": root, "steps": phase_k1_of(dev, peaks, root)}),
+            "--k2-of": (f"K2 of {root}",
+                        lambda: {"kernels": [phase_rank(dev, peaks)]}),
+        }[args[0]]
+        out = run()
+        log(f"[done] {what} in {time.time() - t_start:.1f} s")
+        print(json.dumps(out), flush=True)
         print(card, flush=True)
         return 0
     k1 = phase_apply(dev, peaks)
@@ -2629,8 +2327,7 @@ def main() -> int:
     k2 = phase_rank(dev, peaks)
     k2["widths"] = phase_widths(dev, peaks)
     main_launches = phase_main_path(dev)
-    rate = phase_throughput(dev, card)
-    parity = phase_parity(dev, card)
+    parity = phase_parity(dev)
     itc_launches, _, data = phase_itc(dev)
     ssl_launches, _ = phase_ssl(dev, data)
     mesh_launches, mesh_by_rank, _ = phase_mesh(dev, card)
@@ -2646,7 +2343,6 @@ def main() -> int:
         k["mesh_launches_by_rank"] = {
             run: [c[k["name"]] for c in counts]
             for run, counts in mesh_by_rank.items()}
-    log(f"[rate] {json.dumps(rate)}")
     log(f"[parity] {json.dumps(parity)}")
     log(f"[wide] {json.dumps(wide)}")
     log(f"[done] all phases passed in {time.time() - t_start:.1f} s")

@@ -87,7 +87,7 @@ struct Args {
   const float* keep_t;
   float w;
   int s, c, d, tiles;
-  float* gh;               // (nc, s, d), or null: no gradients
+  float* gh;               // (nc, s, d)
   float* gr;
   float* gt;
   float* part;             // (nc, tiles, 2, c, d): pool gradients a tile
@@ -195,7 +195,6 @@ chunk_loss_kernel(const Args a) {
   const long long base = first * a.d;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int ty = tid / 16, tx = tid % 16;
-  const bool grads = a.gh != nullptr;
   const float* h = a.h + base;
   const float* r = a.r + base;
   const float* t = a.t + base;
@@ -220,14 +219,12 @@ chunk_loss_kernel(const Args a) {
       loss += (double)(m * softplus(sq));
       ms[i] = m;
     }
-    if (grads) {
-      const float cp = 2.f * m * softplus_grad(sq);
-      for (int k = lane; k < a.d; k += 32) {
-        const float g = cp * ((h[o + k] + r[o + k]) - t[o + k]);
-        a.gh[base + o + k] = g;
-        a.gr[base + o + k] = g;
-        a.gt[base + o + k] = -g;
-      }
+    const float cp = 2.f * m * softplus_grad(sq);
+    for (int k = lane; k < a.d; k += 32) {
+      const float g = cp * ((h[o + k] + r[o + k]) - t[o + k]);
+      a.gh[base + o + k] = g;
+      a.gr[base + o + k] = g;
+      a.gt[base + o + k] = -g;
     }
   }
 
@@ -291,7 +288,6 @@ chunk_loss_kernel(const Args a) {
         }
         *c = coef;
       }
-      if (!grads) continue;
       __syncthreads();
       if (tid < kRows) {                    // (coefficients past the
         float sum = 0.f;                    // members are 0)
@@ -476,12 +472,11 @@ pool_sum_kernel(const float* __restrict__ part,
 
 }  // namespace
 
-// The loss of nc chunks into *loss and, when gh is not null, the gradients
-// with respect to h, r, t (gh, gr, gt: (nc, s, d)) and the pools (gph, gpt:
-// (nc, c, d)). part holds nc * ceil(s / 64) * 2 * c * d floats (when gh is
-// not null) and loss_part nc * ceil(s / 64) doubles. All tensors are
-// contiguous fp32; mask, keep_h and keep_t may be null. Two launches on
-// `stream`; returns cudaGetLastError().
+// The loss of nc chunks into *loss and its gradients with respect to h, r,
+// t (gh, gr, gt: (nc, s, d)) and the pools (gph, gpt: (nc, c, d)). part
+// holds nc * ceil(s / 64) * 2 * c * d floats and loss_part nc * ceil(s / 64)
+// doubles. All tensors are contiguous fp32; mask, keep_h and keep_t may be
+// null. Two launches on `stream`; returns cudaGetLastError().
 extern "C" int chunk_loss(const float* h, const float* r, const float* t,
                           const float* ph, const float* pt, const float* mask,
                           const float* keep_h, const float* keep_t, float w,
@@ -494,7 +489,6 @@ extern "C" int chunk_loss(const float* h, const float* r, const float* t,
       kSmemBytes);
   if (err != cudaSuccess) return err;
   const int tiles = (s + kRows - 1) / kRows;
-  const bool grads = gh != nullptr;
   if (nc > 0 && tiles > 0) {
     const Args a{h, r, t, ph, pt, mask, keep_h, keep_t, w, s, c, d, tiles,
                  gh, gr, gt, part, loss_part};
@@ -502,7 +496,7 @@ extern "C" int chunk_loss(const float* h, const float* r, const float* t,
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  const long long cd = grads ? (long long)c * d : 0;
+  const long long cd = (long long)c * d;
   long long blocks = ((long long)nc * 2 * cd + kThreads - 1) / kThreads;
   if (blocks > kMaxSumBlocks) blocks = kMaxSumBlocks;
   pool_sum_kernel<<<(int)blocks + 1, kThreads, 0, stream>>>(

@@ -10,8 +10,8 @@ of its occurrences' rows of ``g_rows``: ``acc[r] += g^2`` then
 outside the range do nothing. ``param`` and ``acc`` are updated in place.
 
 :func:`row_adagrad` follows its tensors' device: on the CPU it runs the
-plain version (:func:`dedup_rows`, a stable sort and a sequential
-``index_add_``, then :func:`fused_row_adagrad_plain`); on a CUDA device it
+plain version (:func:`row_adagrad_plain`: a stable sort, a sequential
+``index_add_`` and the update); on a CUDA device it
 launches the kernel (or raises), which sums each row's occurrences in the
 same order and so gives the same bits. ``launches`` counts the kernel's
 launches, one per call. While a profiler session runs, each call adds its
@@ -36,56 +36,24 @@ _SLOTS = 3               # kSlots: the rows the last call touched
 _scratch = {}            # (device index, stream) -> (counts, row_start, work)
 
 
-def dedup_rows(ids: torch.Tensor, g_rows: torch.Tensor, rows: int,
-               row_offset: int = 0, total_rows: int | None = None):
-    """(loc int32 (N,), gsum (N, d)) for :func:`fused_row_adagrad_plain`:
-    one slot per unique id with its summed gradient, in sorted order; the
-    remaining slots and ids outside ``[row_offset, row_offset + rows)`` get
-    distinct sentinels ``>= rows``.
-
-    Row-sharded tables: ``rows`` is the local shard's row count,
-    ``row_offset`` its first global row and ``total_rows`` the global count;
-    ``ids`` stay global."""
-    n = ids.shape[0]
-    total = total_rows or rows
+def row_adagrad_plain(param, acc, ids, g_rows, lr: float, eps: float = 1e-7,
+                      row_offset: int = 0):
+    """Plain PyTorch version of the kernel, in place: a stable sort of
+    ``ids``, a sequential ``index_add_`` of each row's occurrences in
+    ascending order (the order in which the kernel sums them), then the
+    update on the rows inside ``[row_offset, row_offset + rows)``."""
     sid, order = torch.sort(ids, stable=True)
-    sg = g_rows[order]
-    is_start = torch.ones_like(sid, dtype=torch.bool)
-    is_start[1:] = sid[1:] != sid[:-1]
-    seg = torch.cumsum(is_start, dim=0) - 1                    # (N,) in [0, U)
-    gsum = torch.zeros_like(g_rows).index_add_(0, seg, sg)
-    arange = torch.arange(n, device=ids.device, dtype=sid.dtype)
-    rep = total + arange
-    rep[seg] = sid
-    loc = rep - row_offset
-    valid = (loc >= 0) & (loc < rows)
-    loc = torch.where(valid, loc, rows + arange)
-    return loc.to(torch.int32), gsum
-
-
-def fused_row_adagrad_plain(param, acc, loc, gsum, lr: float,
-                            eps: float = 1e-7):
-    """The update on deduplicated rows ``loc`` (each at most once; slots
-    outside the table are sentinels and dropped) with summed gradients
-    ``gsum``, in place."""
-    valid = (loc >= 0) & (loc < param.shape[0])
-    rows = loc[valid].long()
-    g = gsum[valid]
+    uniq, seg = torch.unique_consecutive(sid, return_inverse=True)
+    gsum = g_rows.new_zeros((uniq.shape[0], g_rows.shape[1])).index_add_(
+        0, seg, g_rows[order])
+    loc = uniq - row_offset
+    inside = (loc >= 0) & (loc < param.shape[0])
+    rows, g = loc[inside], gsum[inside]
     new_acc = acc[rows] + g * g
     upd = torch.where(new_acc > 0, torch.rsqrt(new_acc + eps), 0.0) * g
     acc[rows] = new_acc
     param[rows] = param[rows] - lr * upd
     return param, acc
-
-
-def row_adagrad_plain(param, acc, ids, g_rows, lr: float, eps: float = 1e-7,
-                      row_offset: int = 0):
-    """Plain PyTorch version of the kernel: :func:`dedup_rows`, then
-    :func:`fused_row_adagrad_plain`."""
-    rows = param.shape[0]
-    loc, gsum = dedup_rows(ids, g_rows, rows, row_offset, row_offset + rows)
-    return fused_row_adagrad_plain(param, acc, loc, gsum.contiguous(), lr,
-                                   eps)
 
 
 def _check(param, acc, ids, g_rows):

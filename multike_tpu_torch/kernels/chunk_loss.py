@@ -43,12 +43,11 @@ def _sq_norm(x):
 
 
 def chunk_shared_loss_plain(phs, prs, pts, cand_h, cand_t, neg_weight=1.0,
-                            pos_mask=None, keep_h=None, keep_t=None,
-                            grads: bool = True):
-    """``(loss, grads)``: the loss and, when ``grads``, its gradients with
-    respect to ``(phs, prs, pts, cand_h, cand_t)`` in closed form (else
-    None). With x = r - t for the head pool and x = -(h + r) for the tail
-    pool, a pair's coefficient k = -2 w m keep sigmoid(-|c + x|^2) gives
+                            pos_mask=None, keep_h=None, keep_t=None):
+    """``(loss, grads)``: the loss and its gradients with respect to
+    ``(phs, prs, pts, cand_h, cand_t)`` in closed form. With x = r - t for
+    the head pool and x = -(h + r) for the tail pool, a pair's coefficient
+    k = -2 w m keep sigmoid(-|c + x|^2) gives
     g_x = sum_j k c_j + (sum_j k) x and g_c = sum_i k x_i + (sum_i k) c."""
     a = phs + prs - pts
     sq = _sq_norm(a)                                                # (NC, S)
@@ -68,8 +67,6 @@ def chunk_shared_loss_plain(phs, prs, pts, cand_h, cand_t, neg_weight=1.0,
     loss = (torch.sum(F.softplus(sq) * m)
             + torch.sum(F.softplus(-dist_h) * wk_h)
             + torch.sum(F.softplus(-dist_t) * wk_t))
-    if not grads:
-        return loss, None
     g_pos = (2.0 * m * torch.sigmoid(sq))[..., None] * a
     k_h = -2.0 * wk_h * torch.sigmoid(-dist_h)
     k_t = -2.0 * wk_t * torch.sigmoid(-dist_t)
@@ -108,9 +105,9 @@ def _check(phs, prs, pts, cand_h, cand_t, pos_mask, keep_h, keep_t):
 
 
 def _launch(phs, prs, pts, cand_h, cand_t, neg_weight, pos_mask, keep_h,
-            keep_t, grads: bool):
+            keep_t):
     """The kernel: ``(loss, flat)``, ``flat`` the five gradients one after
-    another (None without ``grads``)."""
+    another."""
     global launches
     nc, s, d = phs.shape
     c = cand_h.shape[1]
@@ -121,22 +118,18 @@ def _launch(phs, prs, pts, cand_h, cand_t, neg_weight, pos_mask, keep_h,
     tiles = -(-s // _ROWS)
     loss = torch.empty((), dtype=torch.float32, device=dev)
     flat = torch.empty(3 * rows + 2 * pools, dtype=torch.float32,
-                       device=dev) if grads else None
+                       device=dev)
     if nc * s == 0:
-        return loss.zero_(), None if flat is None else flat.zero_()
+        return loss.zero_(), flat.zero_()
     # scratch: the blocks' loss partials (float64), then the pool gradients
     # of each row tile
-    scratch = torch.empty(2 * nc * tiles + (nc * tiles * 2 * c * d
-                                            if grads else 0),
+    scratch = torch.empty(2 * nc * tiles + nc * tiles * 2 * c * d,
                           dtype=torch.float32, device=dev)
     ptr = lambda x: None if x is None else x.data_ptr()   # noqa: E731
-    if grads:
-        g = flat.data_ptr()
-        outs = [g + 4 * off for off in (0, rows, 2 * rows, 3 * rows,
-                                        3 * rows + pools)]
-        part = scratch.data_ptr() + 8 * nc * tiles
-    else:
-        outs, part = [None] * 5, None
+    g = flat.data_ptr()
+    outs = [g + 4 * off for off in (0, rows, 2 * rows, 3 * rows,
+                                    3 * rows + pools)]
+    part = scratch.data_ptr() + 8 * nc * tiles
     lib = _build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
@@ -162,7 +155,7 @@ class _ChunkLoss(torch.autograd.Function):
             loss, grads = chunk_shared_loss_plain(*args)
             flat = torch.cat([g.reshape(-1) for g in grads])
         else:
-            loss, flat = _launch(*args, grads=True)
+            loss, flat = _launch(*args)
         ctx.flat = flat
         ctx.shapes = [x.shape for x in (phs, prs, pts, cand_h, cand_t)]
         return loss
@@ -180,16 +173,11 @@ class _ChunkLoss(torch.autograd.Function):
 def chunk_shared_loss(phs, prs, pts, cand_h, cand_t, neg_weight=1.0,
                       pos_mask=None, keep_h=None, keep_t=None):
     """The loss (a 0-dim tensor) of NC chunks; differentiable with respect
-    to the five row tensors, whose gradients are computed with it when any
-    of them requires one."""
+    to the five row tensors. Its gradients are always computed with it; with
+    none wanted (under ``torch.no_grad()``, or no input requiring one) they
+    are dropped, and the loss is the same, bit for bit."""
     _check(phs, prs, pts, cand_h, cand_t, pos_mask, keep_h, keep_t)
     if phs.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {phs.device}")
-    args = (phs, prs, pts, cand_h, cand_t, neg_weight, pos_mask, keep_h,
-            keep_t)
-    if torch.is_grad_enabled() and any(
-            x.requires_grad for x in (phs, prs, pts, cand_h, cand_t)):
-        return _ChunkLoss.apply(*args)
-    if phs.device.type == "cpu":
-        return chunk_shared_loss_plain(*args, grads=False)[0]
-    return _launch(*args, grads=False)[0]
+    return _ChunkLoss.apply(phs, prs, pts, cand_h, cand_t, neg_weight,
+                            pos_mask, keep_h, keep_t)

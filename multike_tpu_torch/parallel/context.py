@@ -163,7 +163,7 @@ def row_apply_sharded(pctx: MeshContext, name: str, param, acc, ids, g_rows,
     Gathers every dp rank's (row id, row gradient) pairs, then applies the
     deduplicated update to the rows this rank holds, through
     ``sparse_adagrad.row_apply`` and so K1 on every rank (with tp > 1 the
-    other shards' rows are sentinels there). dp replicas stay equal; tp
+    other shards' ids do nothing there). dp replicas stay equal; tp
     shards update disjoint row ranges. ``sizes``: every dp rank's id count,
     if the caller knows them (else they are gathered first)."""
     from multike_tpu_torch.train import sparse_adagrad
@@ -172,6 +172,5 @@ def row_apply_sharded(pctx: MeshContext, name: str, param, acc, ids, g_rows,
         [ids, g_rows.contiguous()], pctx.dp_group, sizes)
     rows = param.shape[0]
     offset = pctx.tp_index * rows if pctx.sharded(name) else 0
-    total = rows * pctx.tp if pctx.sharded(name) else rows
     return sparse_adagrad.row_apply(param, acc, all_ids, all_g, lr,
-                                    row_offset=offset, total_rows=total)
+                                    row_offset=offset)

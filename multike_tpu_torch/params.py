@@ -137,10 +137,3 @@ def opt_states_from_reference(np_states: Dict, device=None) -> Dict:
 def lookup_norm(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Gather rows then l2-normalize each row (normalize-on-read)."""
     return l2_normalize(table[idx], axis=-1)
-
-
-def lookup_norm_fast(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """The JAX package picks a one-hot matmul gather for small tables, a TPU
-    scatter workaround; its forward value is the plain row gather, so here
-    it is :func:`lookup_norm`."""
-    return lookup_norm(table, idx)

@@ -17,7 +17,7 @@ which is optax.adagrad's ``scale_by_rss`` + ``scale(-lr)``, not
 The JAX package sorts the ids and segment-sums before its TPU kernel,
 because TPU scatters serialize; on the card K1 deduplicates without a sort
 (csrc/apply_kernel.cu). On the CPU the plain version still sorts
-(``apply_kernel.dedup_rows``).
+(``apply_kernel.row_adagrad_plain``).
 
 Unlike the JAX package, which returns new arrays (in place only through
 buffer donation), every function here updates ``param`` and ``acc`` IN
@@ -42,14 +42,13 @@ def init_acc(param, a0: float = ADAGRAD_ACC0):
 
 def row_apply(param: torch.Tensor, acc: torch.Tensor, ids: torch.Tensor,
               g_rows: torch.Tensor, lr: float, eps: float = ADAGRAD_EPS,
-              row_offset: int = 0, total_rows: int | None = None):
+              row_offset: int = 0):
     """One Adagrad step on ``param`` touching only ``ids``' rows, in place.
 
     ``g_rows`` (N, d): per-OCCURRENCE gradients of the gathered rows
     ``param[ids]``. Row-sharded tables: ``param`` holds the global rows
     ``[row_offset, row_offset + rows)``, ``ids`` stay global and ids outside
-    the shard do nothing; ``total_rows`` (the global count) is taken as the
-    JAX function takes it and not needed here. Returns ``(param, acc)``."""
+    the shard do nothing. Returns ``(param, acc)``."""
     return row_adagrad(param, acc, ids, g_rows, lr, eps, row_offset)
 
 

@@ -68,7 +68,7 @@ from multike_tpu_torch.losses import (alignment_loss,
                                       space_mapping_loss)
 from multike_tpu_torch.parallel import distributed
 from multike_tpu_torch.parallel.context import gather_rows, row_apply_sharded
-from multike_tpu_torch.params import l2_normalize, lookup_norm_fast
+from multike_tpu_torch.params import l2_normalize, lookup_norm
 from multike_tpu_torch.sampling import (TripleFilter, sample_corruptions,
                                         sample_shared_corruptions,
                                         sample_shared_neighbor_corruptions,
@@ -430,8 +430,8 @@ class RelViewEpoch:
     def _loss(self, rows, dense, aux, pos1, m1, ch1, ct1, pos2, m2, ch2, ct2):
         rv_rows = l2_normalize(rows["rv_ent"], axis=-1)
         dim = rv_rows.shape[-1]
-        prs_all = lookup_norm_fast(dense["rel"],
-                                   torch.cat([pos1[:, 1], pos2[:, 1]]))
+        prs_all = lookup_norm(dense["rel"],
+                              torch.cat([pos1[:, 1], pos2[:, 1]]))
         prs1, prs2 = prs_all[:pos1.shape[0]], prs_all[pos1.shape[0]:]
         # the sizes of the rows in hand: a mesh rank holds s / dp rows of
         # each chunk
@@ -563,8 +563,8 @@ class PerSlotRelViewEpoch:
               cand2, hb2, keep2):
         rv_rows = l2_normalize(rows["rv_ent"], axis=-1)
         dim = rv_rows.shape[-1]
-        prs_all = lookup_norm_fast(dense["rel"],
-                                   torch.cat([pos1[:, 1], pos2[:, 1]]))
+        prs_all = lookup_norm(dense["rel"],
+                              torch.cat([pos1[:, 1], pos2[:, 1]]))
         prs1, prs2 = prs_all[:pos1.shape[0]], prs_all[pos1.shape[0]:]
         # the rows in hand: a mesh rank holds its dp block of each KG's
         sizes = [n for pos, cand in ((pos1, cand1), (pos2, cand2))
@@ -806,7 +806,7 @@ def build_ckge_rel_epoch(cfg: Config, n: int, pctx=None):
     def loss_fn(rows, dense, aux, pos):
         hrows = l2_normalize(rows["rv_ent"], axis=-1)
         phs, pts = hrows[:pos.shape[0]], hrows[pos.shape[0]:]
-        prs = lookup_norm_fast(dense["rel"], pos[:, 1])
+        prs = lookup_norm(dense["rel"], pos[:, 1])
         return 2.0 * relation_logistic_loss_wo_negs(phs, prs, pts)
 
     return _sampled(cfg, "ckge_rel", n, cfg.batch_size, _rv_pair_ids,
@@ -820,7 +820,7 @@ def build_ckgp_rel_epoch(cfg: Config, n: int, pctx=None):
     def loss_fn(rows, dense, aux, pos, w):
         hrows = l2_normalize(rows["rv_ent"], axis=-1)
         phs, pts = hrows[:pos.shape[0]], hrows[pos.shape[0]:]
-        prs = lookup_norm_fast(dense["rel"], pos[:, 1])
+        prs = lookup_norm(dense["rel"], pos[:, 1])
         return 2.0 * logistic_loss_wo_negs(phs, prs, pts, w)
 
     return _sampled(cfg, "ckgp_rel", n, cfg.batch_size, _rv_pair_ids,

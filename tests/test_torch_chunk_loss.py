@@ -117,10 +117,13 @@ def test_plain_matches_autograd_and_jax(nc, s, c, d, mask, keep, w):
         np.testing.assert_allclose(g.numpy(), np.asarray(jg), **GRAD,
                                    err_msg=n)
 
-    # without gradients: the same loss, no gradient work
-    none_loss, none = ck.chunk_shared_loss_plain(*xs, neg_weight=w, **kw_t,
-                                                 grads=False)
-    assert none is None and torch.equal(none_loss, loss)
+    # with no gradient wanted: the same path, the same loss, bitwise
+    with_grad = ck.chunk_shared_loss(*leaves, neg_weight=w, **kw_t)
+    with torch.no_grad():
+        no_grad = ck.chunk_shared_loss(*leaves, neg_weight=w, **kw_t)
+    assert not no_grad.requires_grad
+    assert torch.equal(no_grad, with_grad.detach())
+    assert torch.equal(no_grad, loss)
 
 
 def test_autograd_hands_over_the_stashed_gradients_scaled():

@@ -368,8 +368,8 @@ def test_chunk_loss_matches_plain(dev, nc, s, c, d, masks):
     pool's gradient sums the terms of up to 4,064 positives, in float32
     within a 64-row tile and in float64 over the tiles; the CPU emulation
     of the kernel read 1.7e-7 of the largest element, the float32 plain
-    version as much. Two calls, and the loss alone (no gradient), give the
-    same bits; each call launches once."""
+    version as much. Two calls, and the loss under ``torch.no_grad()``,
+    give the same bits; each call launches once."""
     xs, kw = _k3_inputs(dev, nc, s, c, d, masks, nc * s + d)
     w, scale = 10 / 256, 0.37
     runs = []

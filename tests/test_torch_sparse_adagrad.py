@@ -1,11 +1,12 @@
 """The PyTorch port's row-sparse Adagrad and K1's wrapper ``row_adagrad`` on
 the CPU (its plain version) against the JAX package: ``row_apply`` with and
-without its Pallas kernel (in interpret mode), and the plain update
-``fused_row_adagrad_plain`` against ``fused_row_adagrad_pallas``.
+without its Pallas kernel (in interpret mode), and the plain version
+``row_adagrad_plain`` on ``(ids, g_rows)`` against the JAX package's sort,
+segment-sum and ``fused_row_adagrad_pallas``.
 
 Tolerance rtol 2e-6 / atol 1e-7 (one rsqrt and a few float32 products per
-element); rows the step does not touch stay bit-identical and sentinel slots
-are dropped."""
+element); rows the step does not touch stay bit-identical and ids outside
+the table do nothing."""
 import numpy as np
 import pytest
 import torch
@@ -57,8 +58,7 @@ def test_row_apply_sharded_offset_matches_jax():
                                    row_offset=off, total_rows=total)
     got_p, got_a = tsa.row_apply(torch.tensor(param), torch.tensor(acc),
                                  torch.tensor(ids).long(),
-                                 torch.tensor(g_rows), 0.05, row_offset=off,
-                                 total_rows=total)
+                                 torch.tensor(g_rows), 0.05, row_offset=off)
     np.testing.assert_allclose(got_p.numpy(), np.asarray(want_p), **TOL)
     np.testing.assert_allclose(got_a.numpy(), np.asarray(want_a), **TOL)
 
@@ -76,45 +76,45 @@ def _jax_dedup(ids, g_rows, E):
     return np.asarray(loc), np.asarray(gsum)
 
 
-@pytest.mark.parametrize("seed,E,d,N", [(4, 40, 8, 23), (5, 64, 75, 100)])
+@pytest.mark.parametrize("seed,E,d,N", [(4, 40, 8, 23), (5, 64, 75, 100),
+                                        (6, 30, 4, 40)])
 def test_apply_kernel_plain_matches_pallas(seed, E, d, N):
+    """K1's plain version on ``(ids, g_rows)`` against the JAX package's
+    sort and segment-sum, then its Pallas kernel in interpret mode."""
     param, acc, ids, g_rows = _state(seed, E, d, N)
+    assert len(np.unique(ids)) < N           # duplicates present
     loc, gsum = _jax_dedup(ids, g_rows, E)
     want_p, want_a = fused_row_adagrad_pallas(
         jnp.asarray(param), jnp.asarray(acc), jnp.asarray(loc),
         jnp.asarray(gsum), 0.1, bl=8, interpret=True)
-    got_p, got_a = tk.fused_row_adagrad_plain(
-        torch.tensor(param), torch.tensor(acc), torch.tensor(loc),
-        torch.tensor(gsum), 0.1)
+    got_p, got_a = tk.row_adagrad_plain(
+        torch.tensor(param), torch.tensor(acc), torch.tensor(ids).long(),
+        torch.tensor(g_rows), 0.1)
     np.testing.assert_allclose(got_p.numpy(), np.asarray(want_p), **TOL)
     np.testing.assert_allclose(got_a.numpy(), np.asarray(want_a), **TOL)
 
 
-def test_port_dedup_matches_jax_dedup():
-    param, acc, ids, g_rows = _state(6, 30, 4, 40)
-    loc, gsum = _jax_dedup(ids, g_rows, 30)
-    tloc, tgsum = tk.dedup_rows(torch.tensor(ids).long(),
-                                 torch.tensor(g_rows), 30)
-    assert tloc.dtype == torch.int32
-    u = len(np.unique(ids))
-    np.testing.assert_array_equal(tloc.numpy()[:u], loc[:u])
-    assert (tloc.numpy()[u:] >= 30).all()
-    assert len(set(tloc.numpy().tolist())) == len(tloc)   # sentinels distinct
-    np.testing.assert_allclose(tgsum.numpy()[:u], gsum[:u], **TOL)
-
-
 def test_apply_kernel_sentinels_dropped_untouched_identical():
-    E, d = 30, 4
+    """Ids outside ``[row_offset, row_offset + rows)`` leave those rows and
+    accumulators bitwise untouched: the step is bitwise the step of the ids
+    inside alone."""
+    E, d, off = 30, 4, 10
     param, acc, _, _ = _state(7, E, d, 1)
-    loc = np.array([2, 5, 17, E + 0, E + 1], np.int32)
-    gsum = np.random.RandomState(7).randn(5, d).astype(np.float32)
-    got_p, got_a = tk.fused_row_adagrad_plain(
-        torch.tensor(param), torch.tensor(acc), torch.tensor(loc),
-        torch.tensor(gsum), 0.05)
-    untouched = sorted(set(range(E)) - {2, 5, 17})
+    ids = np.array([12, 3, 15, 40, 27, 9, 15, 55, 0, 39], np.int64)
+    g_rows = np.random.RandomState(7).randn(len(ids), d).astype(np.float32)
+    got_p, got_a = tk.row_adagrad_plain(
+        torch.tensor(param), torch.tensor(acc), torch.tensor(ids),
+        torch.tensor(g_rows), 0.05, row_offset=off)
+    inside = (ids >= off) & (ids < off + E)
+    want_p, want_a = tk.row_adagrad_plain(
+        torch.tensor(param), torch.tensor(acc), torch.tensor(ids[inside]),
+        torch.tensor(g_rows[inside]), 0.05, row_offset=off)
+    assert torch.equal(got_p, want_p) and torch.equal(got_a, want_a)
+    touched = [2, 5, 17, 29]
+    untouched = sorted(set(range(E)) - set(touched))
     np.testing.assert_array_equal(got_p.numpy()[untouched], param[untouched])
     np.testing.assert_array_equal(got_a.numpy()[untouched], acc[untouched])
-    assert not np.array_equal(got_p.numpy()[[2, 5, 17]], param[[2, 5, 17]])
+    assert (got_p.numpy()[touched] != param[touched]).any(axis=1).all()
 
 
 def _ids_case(name):
