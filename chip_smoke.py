@@ -14,6 +14,7 @@ kernels' bounds, the inputs).
                                         # phase 2's steps
     python3 chip_smoke.py --k3          # phases 1 and 2b only
     python3 chip_smoke.py --k4          # phases 1 and 2c only
+    python3 chip_smoke.py --k5          # phases 1 and 2d only
 
 (``--mesh-rank TASK SPEC`` is how phase 8 starts its rank processes.) Each
 kernel phase says which timer its ``ms`` comes from (``timer``): CUDA
@@ -55,6 +56,16 @@ Phases, each of which must pass or the script exits non-zero:
      each also apart, and the fills and copy of its small buffers) beside
      its FLOP bound and the eager ``conv_stages`` with autograd; then
      compared at 4,097 rows and at one row;
+  2d. K5, the per-slot loss with its gradients, at the per-slot cell's
+     step (two KGs of 2,539 and 2,461 positives, 10 slots each, d = 75, a
+     positive mask with a padded tail and keep flags dropping about 1% of
+     the slots) and at d = 384, through the wrapper and autograd's
+     backward (incoming gradient 0.37): within rtol 1e-6 (the loss) and
+     2e-6 of the largest element (each gradient) of its plain version in
+     float64 on the card, bitwise from call to call and under
+     ``torch.no_grad()``, timed (CUDA events; its two kernels apart, by
+     the profiler) beside its bytes bound, its plain version in float32
+     and the eager expression the port ran before it, with autograd;
   3. K2, the fused rank count, against its plain version at 35K x 70K,
      d=75, and at the main path's own 6K x 6K and 2K x 8K, then in CSLS
      form; at each shape it is timed beside the plain version and
@@ -66,13 +77,15 @@ Phases, each of which must pass or the script exits non-zero:
      version (compared, not timed);
   4. the main path: ``MultiKETrainer`` trains the relation view on the
      port's synthetic 20K-entity KG pair and ``views.valid_metrics`` ranks
-     it; the rv valid MRR must rise and K1, K2 and K3 must have launched;
+     it; the rv valid MRR must rise and K1, K2 and K3 must have launched
+     (K4 and K5 not);
   5. bench.py's reference-parity row at its shape (100K entities and 600K
      random triples per KG): batch 5000, per_slot negatives with Bloom
      "drop" rejection, uniform and truncated (DWY100K-shaped neighbor
      table), then uniform with "resample" rejection, row-sparse: every
-     loss finite and K1 launched, the drop shares and Bloom passes a step
-     reported (phase 2 times K1 at this row's step shape);
+     loss finite, K1 launched and K5 once a KG a step, the drop shares and
+     Bloom passes a step reported (phase 2 times K1 at this row's step
+     shape);
   6. the ITC driver, through the calls ``cli.main`` makes (DataModel with
      the literal encoder at full width, predicate alignment,
      ``MultiKE_ITC.run``) on the 20K pair, d=75, row-sparse on, cut to 10
@@ -90,8 +103,8 @@ Phases, each of which must pass or the script exits non-zero:
      rejection in both phases, 10 epochs (refresh and soft-alignment start
      at 5, one evaluation at 10, WVA included) and 10 epochs of
      space_mapping (one ``final`` valid). Every stream's loss must be
-     finite, K1 must launch in all 7 SSL streams and K2 once per
-     evaluation, per-slot epochs must run before and after the refresh, rv,
+     finite, K1 must launch in all 7 SSL streams, K5 in rel_view alone
+     and K2 once per evaluation, per-slot epochs must run before and after the refresh, rv,
      avg and final valid MRR must rise, the 6 test MRRs must be finite and
      the embeddings saved; the Bloom words and membership must be bit-equal
      to the CPU's, and one per-slot rel_view step with its keep mask, one
@@ -117,8 +130,8 @@ Phases, each of which must pass or the script exits non-zero:
      on every rank. The ranks share one card, so their times say nothing
      about scaling.
   9. the ITC driver through ``cli.main`` at ``--set dim=384`` on a
-     5K-entity pair, 3 epochs, row-sparse on, one evaluation: K1 and K2
-     must launch, every stream's loss be finite, the test MRRs reach the
+     5K-entity pair, 3 epochs, row-sparse on, one evaluation: K1 to K4
+     must launch and K5 not, every stream's loss be finite, the test MRRs reach the
      floors of WIDE_FLOORS and the embeddings be saved; the saved final
      embeddings of the test pairs, ranked once more by K2 and by its
      plain version, must agree up to ties, and give the driver's test MRR.
@@ -252,7 +265,7 @@ def clocks_under_load(run, calls: int) -> dict:
 def phase_build():
     """Build the host helpers, then the kernels, and report each kernel's
     registers and spills from nvcc's ``-Xptxas -v`` log; a kernel that
-    spills fails the run."""
+    spills fails the run. Returns {kernel's mangled name: its numbers}."""
     from multike_tpu_torch.kernels import _build
 
     t0 = time.time()
@@ -286,6 +299,7 @@ def phase_build():
             f"{info.get('spill_bytes')} spill bytes, "
             f"{info.get('stack_bytes')} stack bytes")
         check(info.get("spill_bytes") == 0, f"{name} spills to local memory")
+    return kernels
 
 
 def k1_steps(dev, n_ent=100_000, rel_triples=600_000, ssl_n=20_000,
@@ -573,6 +587,218 @@ def phase_chunk_loss(dev, peaks):
                 library_ms=None, shape=main["shape"], step=main,
                 wide_step=wide)
 
+
+# K5's shapes: a step of the benchmark's per-slot cell
+# rv-dwy100k-perslot-trunc (batch 5,000 of 463,294 and 448,774 triples:
+# 2,539 and 2,461 positives, 10 slots each, d = 75), and the same step at
+# d = 384
+K5_STEP = ((2539, 10, 75), (2461, 10, 75))
+K5_WIDE = ((2539, 10, 384), (2461, 10, 384))
+
+
+def k5_bytes(b, k, d) -> int:
+    """The least bytes a call of K5 moves: every row (h, r, t and the K
+    candidates) read once and its gradient written once, in fp32, with the
+    coins (one byte a slot), the keep flags and the mask (fp32) read once
+    and the loss written once."""
+    return 2 * 4 * (3 + k) * b * d + (1 + 4) * b * k + 4 * b + 4
+
+
+def k5_inputs(dev, b, k, d, masks, seed, coins="mixed"):
+    """Unit rows of one KG's positives and candidates, made with numpy from
+    ``seed``, and the coins (``coins`` "mixed", "head" or "tail"). With
+    ``masks`` true, a positive mask with a padded tail of 7 rows and keep
+    flags dropping about 1% of the slots (the cell's Bloom drop takes
+    0.58%); with ``masks`` "all", a mask of zeros and such keep flags.
+    Tensors on ``dev``: ``(xs, head, kw)``, ``kw`` the masks by their
+    keyword names (empty without masks)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+
+    def rows(*shape):
+        x = rng.randn(*shape, d).astype(np.float32)
+        return x / np.linalg.norm(x, axis=-1, keepdims=True)
+
+    to = lambda x: torch.tensor(x, device=dev)  # noqa: E731
+    xs = [to(x) for x in (rows(b), rows(b), rows(b), rows(b, k))]
+    head = {"mixed": rng.rand(b, k) > 0.5, "head": np.ones((b, k), bool),
+            "tail": np.zeros((b, k), bool)}[coins]
+    kw = {}
+    if masks:
+        m = (np.arange(b) < max(b - 7, 1)).astype(np.float32)
+        kw = dict(pos_mask=to(m if masks is True else 0 * m),
+                  neg_keep=to((rng.rand(b, k) > 0.01).astype(np.float32)))
+    return xs, to(head), kw
+
+
+def eager_lean_loss(phs, prs, pts, cand_rows, corrupt_head, pos_mask=None,
+                    neg_keep=None):
+    """The per-slot loss as the port ran it before K5: eager ops, the
+    negative distances expanded into einsums, differentiated by autograd
+    (the yardstick of K5's time, and of its plain version's gradients in
+    the CPU tests)."""
+    import torch
+    import torch.nn.functional as F
+
+    def sq(x):
+        return torch.sum(torch.square(x), dim=-1)
+
+    pos = F.softplus(sq(phs + prs - pts))
+    rt, hr = prs - pts, phs + prs
+    c_sq = sq(cand_rows)
+    ns_h = -(c_sq + sq(rt)[:, None]
+             + 2.0 * torch.einsum("bkd,bd->bk", cand_rows, rt))
+    ns_t = -(sq(hr)[:, None] + c_sq
+             - 2.0 * torch.einsum("bkd,bd->bk", cand_rows, hr))
+    neg = F.softplus(torch.where(corrupt_head, ns_h, ns_t))
+    if neg_keep is not None:
+        neg = neg * neg_keep
+    if pos_mask is not None:
+        pos = pos * pos_mask
+        neg = neg * pos_mask[:, None]
+    return torch.sum(pos) + torch.sum(neg)
+
+
+def k5_grads(xs, head, kw, scale, loss_fn=None):
+    """The loss and the four gradients as the main path takes them: the
+    wrapper's autograd ``Function`` (or ``loss_fn``) on leaves, then
+    autograd's backward with the incoming gradient ``scale``."""
+    import torch
+
+    from multike_tpu_torch.kernels import per_slot_loss as k5
+
+    leaves = [x.detach().requires_grad_() for x in xs]
+    loss = (loss_fn or k5.per_slot_loss)(*leaves, head, **kw)
+    grads = torch.autograd.grad(loss, leaves,
+                                torch.tensor(scale, device=loss.device))
+    return loss.detach(), grads
+
+
+# K5 against its plain version in float64: the loss within this share of
+# its value, each gradient within this share of its largest element. K5 is
+# float32: each distance is rounded once (about 6e-8 of a distance up to 9)
+# and a row's gradient sums at most K + 1 terms.
+K5_LOSS_RTOL = 1e-6
+K5_GRAD_TOL = 2e-6
+
+
+def k5_errors(xs, head, kw, scale, loss, grads):
+    """``(loss_err, grad_err)`` of a K5 result (gradients scaled by the
+    incoming ``scale``) against the plain version in float64: the loss's
+    gap over its value (the gap itself where the value is 0, as an
+    all-masked batch's is) and the largest gap of a gradient over that
+    gradient's largest element (its largest element where the plain one
+    is all 0). A gradient of another shape raises."""
+    from multike_tpu_torch.kernels import per_slot_loss as k5
+
+    want_loss, want = k5.per_slot_loss_plain(
+        *(x.double() for x in xs), head,
+        **{n: v.double() for n, v in kw.items()})
+    gap = abs(float(loss) - float(want_loss))
+    loss_err = gap / abs(float(want_loss)) if float(want_loss) else gap
+    grad_err = 0.0
+    for name, x, got, g in zip(("phs", "prs", "pts", "cand_rows"), xs, grads,
+                               want):
+        check(got.shape == x.shape, f"K5: {name}'s gradient "
+              f"{tuple(got.shape)}, not {tuple(x.shape)}")
+        g = scale * g
+        top = float(g.abs().max())
+        e = float((got.double() - g).abs().max())
+        grad_err = max(grad_err, e / top if top else e)
+    return loss_err, grad_err
+
+
+def _k5_case(dev, peaks, kgs, label, seed=0, scale=0.37):
+    """K5 over the KGs ``kgs`` of one step, (b, k, d) each, with the cell's
+    masks, through the wrapper the main path calls and autograd's backward
+    with an incoming gradient of ``scale``: against its plain version in
+    float64 on the card (``k5_errors`` within ``K5_LOSS_RTOL`` and
+    ``K5_GRAD_TOL``), bitwise from call to call and under
+    ``torch.no_grad()``; the launcher timed (CUDA events; its two kernels
+    apart, by the profiler) beside its bytes bound, the plain version in
+    float32 and the eager expression with autograd."""
+    import torch
+
+    from multike_tpu_torch.kernels import per_slot_loss as k5
+
+    err = 0.0
+    ins = [k5_inputs(dev, *kg, True, seed + i) for i, kg in enumerate(kgs)]
+    for xs, head, kw in ins:
+        n = k5.launches
+        loss, grads = k5_grads(xs, head, kw, scale)
+        loss2, grads2 = k5_grads(xs, head, kw, scale)
+        with torch.no_grad():
+            alone = k5.per_slot_loss(*xs, head, **kw)
+        torch.cuda.synchronize()
+        check(k5.launches == n + 3, f"K5 {label}: {k5.launches - n} "
+              "launches for three calls")
+        check(torch.equal(loss, loss2) and all(
+            torch.equal(a, b) for a, b in zip(grads, grads2)),
+            f"K5 {label}: two calls differ")
+        check(torch.equal(alone, loss), f"K5 {label}: the loss under "
+              "no_grad differs from the loss with its gradients")
+        loss_err, grad_err = k5_errors(xs, head, kw, scale, loss, grads)
+        check(loss_err <= K5_LOSS_RTOL, f"K5 {label}: loss {float(loss)} "
+              f"is {loss_err:.2e} from the float64 plain version's")
+        check(grad_err <= K5_GRAD_TOL, f"K5 {label}: a gradient "
+              f"{grad_err:.2e} of its largest element from the float64 "
+              "plain version")
+        err = max(err, grad_err)
+
+    def step(fn):
+        return [fn(*xs, head, kw["pos_mask"], kw["neg_keep"])
+                for xs, head, kw in ins]
+
+    def wrapped(loss_fn=None):
+        return [k5_grads(xs, head, kw, scale, loss_fn)
+                for xs, head, kw in ins]
+
+    slots = sum(b * k for b, k, _ in kgs)
+    nbytes = sum(k5_bytes(*kg) for kg in kgs)
+    bound_ms = nbytes / peaks[0] * 1e3
+    ms = time_ms(lambda: step(k5._launch), 50)
+    wrapper_ms = time_ms(wrapped, 50)
+    plain_ms = time_ms(lambda: step(k5.per_slot_loss_plain), 10)
+    eager_ms = time_ms(lambda: wrapped(eager_lean_loss), 10)
+    eager_card_ms = device_ms(lambda: wrapped(eager_lean_loss))[0]
+    card_ms, passes, _ = device_ms(lambda: step(k5._launch),
+                                   "per_slot_loss|slot_loss_sum")
+    log(f"[K5] {label}: {kgs}, {slots} slots: kernel {ms:.4f} ms a step "
+        f"(CUDA events; profiler {card_ms:.4f}, passes "
+        f"{', '.join(f'{k} {v:.4f}' for k, v in passes.items())}; "
+        f"through the wrapper and autograd {wrapper_ms:.4f}), bound "
+        f"{bound_ms:.4f} ms ({100 * bound_ms / ms:.1f}%; {nbytes} bytes at "
+        f"{peaks[0] / 1e12:.2f} TB/s), plain fp32 {plain_ms:.4f} ms, eager "
+        f"with autograd {eager_ms:.4f} ms ({eager_card_ms:.4f} of card); "
+        f"bitwise call to call; the wrapper's gradients {err:.2e} of their "
+        "largest element from the float64 plain version")
+    return dict(ms=ms, card_ms=card_ms, wrapper_ms=wrapper_ms,
+                passes_ms=passes, plain_ms=plain_ms, eager_ms=eager_ms,
+                eager_card_ms=eager_card_ms, bound_ms=bound_ms,
+                bound_share=bound_ms / ms, max_rel_err=err, slots=slots,
+                bytes=nbytes, shape=[list(kg) for kg in kgs])
+
+
+def phase_slot_loss(dev, peaks, built=None):
+    """K5 at the per-slot cell's step and at d = 384; ``built`` (phase 1's
+    report) gives its registers and spills."""
+    main = _k5_case(dev, peaks, K5_STEP, "per-slot cell step")
+    wide = _k5_case(dev, peaks, K5_WIDE, "d = 384")
+    regs = {name: info for name, info in (built or {}).items()
+            if "per_slot_loss" in name or "slot_loss_sum" in name}
+    return dict(name="per_slot_loss", route="cuda",
+                source="multike_tpu_torch/csrc/per_slot_loss_kernel.cu",
+                replaces=None,
+                wrapper="multike_tpu_torch.kernels.per_slot_loss."
+                        "per_slot_loss", timer="events",
+                max_rel_err=max(main["max_rel_err"], wide["max_rel_err"]),
+                ms=main["ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], bound_by="bytes",
+                library_ms=None, eager_ms=main["eager_ms"],
+                registers=regs, shape=main["shape"], step=main,
+                wide_step=wide)
 
 # K4's shapes: a CNN step of the ITC cell itc-dwy100k (attribute_batch_size
 # 5,000 rows, d = 75) and the same rows at phase 9's width
@@ -1036,9 +1262,9 @@ def phase_main_path(dev, n=20_000, epochs=4, dim=75, batch=5000):
     check(after > before, f"rv valid MRR did not rise: {before} -> {after}")
     check(all(launches[k] > 0 for k in ("fused_row_adagrad", "rank_count",
                                         "chunk_loss"))
-          and launches["conv_score"] == 0,
+          and launches["conv_score"] == launches["per_slot_loss"] == 0,
           f"a kernel did not launch on the main path, or K4 (no CNN scorer "
-          f"on it) did: {launches}")
+          f"on it) or K5 (no per-slot draws) did: {launches}")
     check_against_cpu(trainer, emb)
     return launches
 
@@ -1106,6 +1332,7 @@ def phase_parity(dev, n_ent=100_000, epochs=2):
     from multike_tpu_torch import sampling
     from multike_tpu_torch.config import Config
     from multike_tpu_torch.kernels import apply_kernel as ak
+    from multike_tpu_torch.kernels import per_slot_loss as k5
     from multike_tpu_torch.params import init_params
     from multike_tpu_torch.sampling import (build_neighbor_state,
                                             build_triple_filter)
@@ -1138,7 +1365,7 @@ def phase_parity(dev, n_ent=100_000, epochs=2):
         check(epoch.scheme == "per_slot"
               and epoch.presample == (mode == "drop"),
               "the parity row presamples per-slot draws, unless resampling")
-        launches0, dropped = ak.launches, 0.0
+        launches0, k5_launches0, dropped = ak.launches, k5.launches, 0.0
         rounds = []                        # Bloom passes, one sync each
         hits = sampling._slot_hits
         sampling._slot_hits = lambda *a: rounds.append(1) or hits(*a)
@@ -1152,17 +1379,22 @@ def phase_parity(dev, n_ent=100_000, epochs=2):
             sampling._slot_hits = hits
         rec = dict(steps_per_epoch=steps,
                    k1_launches_per_epoch=(ak.launches - launches0) / runs,
+                   k5_launches_per_epoch=(k5.launches - k5_launches0) / runs,
                    dropped_share=dropped / (epoch.slots * runs)
                    if mode == "drop" else None,
                    bloom_passes_per_step=len(rounds) / (steps * runs))
         check(rec["k1_launches_per_epoch"] > 0, f"K1 did not launch in the "
               f"parity row's {phase} epochs")
+        check(rec["k5_launches_per_epoch"] == 2 * steps, f"K5 launched "
+              f"{rec['k5_launches_per_epoch']} times an epoch in the parity "
+              f"row's {phase} epochs, not once a KG a step")
         log(f"[parity] {phase}: batch 5000, per_slot, Bloom {mode}"
             + (f" ({100 * rec['dropped_share']:.3f}% of slots dropped)"
                if mode == "drop" else "")
             + f", {steps} steps/epoch, {rec['bloom_passes_per_step']:g} "
-            f"Bloom passes a step, {rec['k1_launches_per_epoch']:g} K1 "
-            f"launches an epoch: {runs} epochs, losses finite")
+            f"Bloom passes a step, {rec['k1_launches_per_epoch']:g} K1 and "
+            f"{rec['k5_launches_per_epoch']:g} K5 launches an epoch: {runs} "
+            "epochs, losses finite")
         out[phase] = rec
     return out
 
@@ -1533,6 +1765,10 @@ def phase_ssl(dev, data, n=20_000, dim=75, batch=5000, epochs=10):
                                  by_stream, by_eval)
     check(all(r["rank_count"] == r["calls"] for r in by_eval.values()),
           f"K2 launches by evaluation: {by_eval}")
+    check(by_stream["rel_view"]["per_slot_loss"] == launches["per_slot_loss"]
+          > 0, f"K5 launched {launches['per_slot_loss']} times, "
+          f"{by_stream['rel_view']['per_slot_loss']} in rel_view: the per-slot "
+          "loss is the SSL rel_view's")
     check(by_eval["valid_WVA"]["calls"] == 1 and
           by_eval["test_WVA"]["calls"] == 1, "WVA was not evaluated")
     recs = model.metrics.records
@@ -1709,10 +1945,11 @@ def _kernel_modules() -> dict:
     from multike_tpu_torch.kernels import apply_kernel as ak
     from multike_tpu_torch.kernels import chunk_loss as ck
     from multike_tpu_torch.kernels import conv_score as k4
+    from multike_tpu_torch.kernels import per_slot_loss as k5
     from multike_tpu_torch.kernels import rank_kernel as rk
 
     return {"fused_row_adagrad": ak, "rank_count": rk, "chunk_loss": ck,
-            "conv_score": k4}
+            "conv_score": k4, "per_slot_loss": k5}
 
 
 def _launches():
@@ -2219,8 +2456,10 @@ def phase_wide_itc(dev, n=5_000, dim=WIDE_DIM, batch=5000, epochs=3):
     log(f"[wide] ITC through cli.main at --set dim={dim}, {n} entities per "
         f"KG, {epochs} epochs in {run_s:.1f} s (DataModel included); test "
         f"MRR {results}; launches {launches}")
-    check(all(v > 0 for v in launches.values()),
-          f"a kernel did not launch at d={dim}: {launches}")
+    check(all(v > 0 for k, v in launches.items() if k != "per_slot_loss")
+          and launches["per_slot_loss"] == 0,
+          f"a kernel did not launch at d={dim}, or K5 (no per-slot draws "
+          f"in the ITC driver) did: {launches}")
     check({s for s, _ in recs} >= set(ITC_STREAMS)
           and all(np.isfinite(v[0]) for v in recs.values()),
           "a stream did not run, or its loss is not finite")
@@ -2279,10 +2518,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script needs one GPU",
               file=sys.stderr)
         return 2
-    if args and args not in (["--k3"], ["--k4"]) and (
+    if args and args not in (["--k3"], ["--k4"], ["--k5"]) and (
             len(args) != 2 or args[0] not in ("--k1-of", "--k2-of")):
         print("usage: chip_smoke.py [--k1-of DIR | --k2-of DIR | --k3 | "
-              "--k4]", file=sys.stderr)
+              "--k4 | --k5]", file=sys.stderr)
         return 2
     root = os.path.abspath(args[1]) if len(args) == 2 else REPO
     if not os.path.isdir(os.path.join(root, "multike_tpu_torch")):
@@ -2304,13 +2543,15 @@ def main() -> int:
         f"bounds from this part's published peaks: {peaks[0] / 1e12:.2f} "
         f"TB/s, {peaks[1] / 1e12:.0f} TFLOP/s fp32")
 
-    phase_build()
+    built = phase_build()
     if args:                    # one kernel's phase: its line, the card's
         what, run = {
             "--k3": ("K3", lambda: {"kernels": [
                 phase_chunk_loss(dev, peaks)]}),
             "--k4": ("K4", lambda: {"kernels": [
                 phase_conv_score(dev, peaks)]}),
+            "--k5": ("K5", lambda: {"kernels": [
+                phase_slot_loss(dev, peaks, built)]}),
             "--k1-of": (f"K1 of {root}", lambda: {
                 "k1_of": root, "steps": phase_k1_of(dev, peaks, root)}),
             "--k2-of": (f"K2 of {root}",
@@ -2324,6 +2565,7 @@ def main() -> int:
     k1 = phase_apply(dev, peaks)
     k3 = phase_chunk_loss(dev, peaks)
     k4 = phase_conv_score(dev, peaks)
+    k5 = phase_slot_loss(dev, peaks, built)
     k2 = phase_rank(dev, peaks)
     k2["widths"] = phase_widths(dev, peaks)
     main_launches = phase_main_path(dev)
@@ -2333,7 +2575,7 @@ def main() -> int:
     mesh_launches, mesh_by_rank, _ = phase_mesh(dev, card)
     wide_launches, wide = phase_wide_itc(dev)
 
-    for k in (k1, k2, k3, k4):
+    for k in (k1, k2, k3, k4, k5):
         k["launches"] = ssl_launches[k["name"]]
         k["launches_by_path"] = {"ssl": ssl_launches[k["name"]],
                                  "itc": itc_launches[k["name"]],
@@ -2346,7 +2588,7 @@ def main() -> int:
     log(f"[parity] {json.dumps(parity)}")
     log(f"[wide] {json.dumps(wide)}")
     log(f"[done] all phases passed in {time.time() - t_start:.1f} s")
-    print(json.dumps({"kernels": [k1, k2, k3, k4]}), flush=True)
+    print(json.dumps({"kernels": [k1, k2, k3, k4, k5]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -32,7 +32,7 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
 SOURCES = ("apply_kernel.cu", "rank_kernel.cu", "chunk_loss_kernel.cu",
-           "conv_score_kernel.cu")
+           "conv_score_kernel.cu", "per_slot_loss_kernel.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 HOST_SOURCES = ("host_helpers.cpp",)
@@ -56,6 +56,7 @@ _SIGNATURES = {
     "conv_score_t": [_P] * 2 + [ctypes.c_int] + [_P] * 2,
     "conv_score_backward": [_P] * 8 + [ctypes.c_float] + [ctypes.c_int] * 2
                            + [_P] * 5 + [ctypes.c_int] * 2 + [_P] * 10,
+    "per_slot_loss": [_P] * 7 + [ctypes.c_int] * 3 + [_P] * 7,
 }
 _PCHAR = ctypes.POINTER(ctypes.c_char_p)
 # name -> (restype, argtypes) of each host entry point

@@ -11,6 +11,7 @@ import torch
 import torch.nn.functional as F
 
 from multike_tpu_torch.kernels.chunk_loss import chunk_shared_loss
+from multike_tpu_torch.kernels.per_slot_loss import per_slot_loss
 from multike_tpu_torch.params import l2_normalize
 
 
@@ -66,27 +67,16 @@ def lean_relation_logistic_loss(phs, prs, pts, cand_rows, corrupt_head,
     negatives reuse the positive rows for the uncorrupted side.
     ``phs/prs/pts`` (B, D) normalized rows; ``cand_rows`` (B, K, D)
     normalized candidate rows; ``corrupt_head`` (B, K) bool; ``neg_keep``
-    (B, K) optional 0/1 slot mask.
+    (B, K) optional 0/1 slot mask. Each slot's distance is computed
+    directly:
+      corrupt head:  -||c + r - t||^2
+      corrupt tail:  -||h + r - c||^2
 
-    The negative score is expanded so the only (B, K, D) work is three
-    multiply-reduces over ``cand_rows``:
-      corrupt head:  -||c + r - t||^2 = -(|c|^2 + |r - t|^2 + 2 c.(r - t))
-      corrupt tail:  -||h + r - c||^2 = -(|h + r|^2 + |c|^2 - 2 (h + r).c)"""
-    pos = F.softplus(-transe_score(phs, prs, pts))
-    rt = prs - pts
-    hr = phs + prs
-    c_sq = _sq_norm(cand_rows)                                      # (B, K)
-    c_rt = torch.einsum("bkd,bd->bk", cand_rows, rt)
-    c_hr = torch.einsum("bkd,bd->bk", cand_rows, hr)
-    ns_h = -(c_sq + _sq_norm(rt)[:, None] + 2.0 * c_rt)
-    ns_t = -(_sq_norm(hr)[:, None] + c_sq - 2.0 * c_hr)
-    neg = F.softplus(torch.where(corrupt_head, ns_h, ns_t))
-    if neg_keep is not None:
-        neg = neg * neg_keep
-    if pos_mask is not None:
-        pos = pos * pos_mask
-        neg = neg * pos_mask[:, None]
-    return torch.sum(pos) + torch.sum(neg)
+    The loss and its gradients are computed together, by the kernel K5 on
+    the card and in closed form on the CPU (kernels/per_slot_loss.py), all
+    in float32."""
+    return per_slot_loss(phs, prs, pts, cand_rows, corrupt_head,
+                         pos_mask=pos_mask, neg_keep=neg_keep)
 
 
 def chunk_shared_relation_logistic_loss(phs, prs, pts, cand_h, cand_t,

@@ -321,14 +321,6 @@ def _padded_epoch_indices(gen: torch.Generator, n: int, bs: int, bsp: int,
     return idx, m
 
 
-def _split(rows, sizes):
-    out, off = [], 0
-    for sz in sizes:
-        out.append(rows[off:off + sz])
-        off += sz
-    return out
-
-
 # ---------------------------------------------------------------------------
 # Relation view
 # ---------------------------------------------------------------------------
@@ -569,7 +561,9 @@ class PerSlotRelViewEpoch:
         # the rows in hand: a mesh rank holds its dp block of each KG's
         sizes = [n for pos, cand in ((pos1, cand1), (pos2, cand2))
                  for n in (pos.shape[0], pos.shape[0], cand.numel())]
-        ph1, pt1, c1, ph2, pt2, c2 = _split(rv_rows, sizes)
+        # one split: one backward node, where slices would each write a
+        # zero-filled gradient of all the rows
+        ph1, pt1, c1, ph2, pt2, c2 = torch.split(rv_rows, sizes)
         loss = torch.zeros((), dtype=rv_rows.dtype, device=rv_rows.device)
         for bs, ph, pr, pt, c, hb, keep, m in (
                 (self.bs1, ph1, prs1, pt1, c1, hb1, keep1, m1),

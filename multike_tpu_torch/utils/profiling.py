@@ -58,12 +58,15 @@ SPANS = tuple(f"{s}.{part}" for s in STREAMS for part in ("epoch", "step")) \
 # the counters: with Bloom "drop", the per-slot draws' dropped real slots
 # and all their real slots, once an epoch; the (positive, pool member)
 # pairs of each launch of K3, the chunk-shared loss's kernel
-# (kernels/chunk_loss.py); the rows of each call of the CNN scorer
-# (views/attr_conv.py), and of each forward launch of K4, its kernels
-# (kernels/conv_score.py); the ids of each call of K1, the row-sparse apply
-# (kernels/apply_kernel.py), and the distinct rows they touch
+# (kernels/chunk_loss.py); the slots (positive, candidate) of each call of
+# the per-slot loss, K5 on the card (kernels/per_slot_loss.py); the rows of
+# each call of the CNN scorer (views/attr_conv.py), and of each forward
+# launch of K4, its kernels (kernels/conv_score.py); the ids of each call
+# of K1, the row-sparse apply (kernels/apply_kernel.py), and the distinct
+# rows they touch
 COUNTERS = ("sampling.dropped", "sampling.slots", "loss.chunk_pairs",
-            "conv.rows", "conv.kernel_rows", "apply.ids", "apply.unique")
+            "loss.slot_pairs", "conv.rows", "conv.kernel_rows", "apply.ids",
+            "apply.unique")
 
 
 class _Record:

@@ -7,13 +7,18 @@ conftest imports JAX, which the port does not need):
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
+from chip_smoke import (K5_GRAD_TOL, K5_LOSS_RTOL, k5_errors, k5_grads,
+                        k5_inputs)
 from multike_tpu_torch import losses as tl
 from multike_tpu_torch import params as tp
+from multike_tpu_torch import sampling as ts
 from multike_tpu_torch.config import Config
 from multike_tpu_torch.kernels import apply_kernel as ak
 from multike_tpu_torch.kernels import chunk_loss as ck
 from multike_tpu_torch.kernels import conv_score as k4
+from multike_tpu_torch.kernels import per_slot_loss as k5
 from multike_tpu_torch.kernels import rank_kernel as rk
 from multike_tpu_torch.train import streams as tst
 from multike_tpu_torch.utils import profiling
@@ -455,6 +460,123 @@ def test_chunk_loss_launches_once_a_kg_per_rel_view_step(dev):
             assert err <= 1e-5 * top ** 0.5 * cfg.learning_rate / 0.1 ** 0.5, \
                 (sparse, k, "change", err)
 
+
+def _assert_k5_near_plain(xs, head, kw, scale, loss, grads):
+    """``chip_smoke.k5_errors`` within its tolerances: the loss within
+    ``K5_LOSS_RTOL`` and every gradient within ``K5_GRAD_TOL`` of its
+    largest element of the plain version in float64."""
+    loss_err, grad_err = k5_errors(xs, head, kw, scale, loss, grads)
+    assert loss_err <= K5_LOSS_RTOL, loss_err
+    assert grad_err <= K5_GRAD_TOL, grad_err
+
+
+@pytest.mark.parametrize("b,k,d,masks,coins", [
+    (2539, 10, 75, True, "mixed"),   # the per-slot cell's first KG
+    (2461, 10, 75, False, "mixed"),  # its second, without masks
+    (2539, 10, 384, True, "mixed"),  # the ITC driver's wide width
+    (300, 13, 1000, True, "mixed"),  # eight rounds of columns, two batches
+    (100, 1, 8, True, "head"),
+    (100, 10, 8, False, "tail"),
+    (64, 10, 75, "all", "mixed"),    # every positive masked
+    (1, 10, 75, True, "mixed"),
+])
+def test_per_slot_loss_matches_plain(dev, b, k, d, masks, coins):
+    """K5 through the wrapper the main path calls (its autograd Function,
+    then the backward with an incoming gradient of 0.37) against the plain
+    version in float64 on the card: the loss within rtol 1e-6 and every
+    gradient within 2e-6 of its largest element. The kernel is float32:
+    each distance is rounded once (about 6e-8 of a distance up to 9) and a
+    row's gradient sums at most K + 1 terms. Two calls, and the loss
+    under ``torch.no_grad()``, give the same bits; each call launches
+    once."""
+    xs, head, kw = k5_inputs(dev, b, k, d, masks, b * k + d, coins)
+    runs = []
+    for _ in range(2):
+        n = k5.launches
+        runs.append(k5_grads(xs, head, kw, 0.37))
+        assert k5.launches == n + 1
+    with torch.no_grad():
+        loss_only = k5.per_slot_loss(*xs, head, **kw)
+    torch.cuda.synchronize()
+    (loss, grads), (loss2, grads2) = runs
+    assert torch.equal(loss, loss2)
+    assert all(torch.equal(a, b) for a, b in zip(grads, grads2))
+    assert torch.equal(loss_only, loss)
+    if masks == "all":
+        assert float(loss) == 0.0 and not any(g.any() for g in grads)
+    _assert_k5_near_plain(xs, head, kw, 0.37, loss, grads)
+
+
+def test_per_slot_loss_takes_the_fault_plants_half_batch(dev):
+    """The half_batch fault's first half (``a[:B // 2]``) through
+    ``losses.lean_relation_logistic_loss``: gradients of the half's shape,
+    bitwise the result of copies, near the plain version in float64 as in
+    test_per_slot_loss_matches_plain; each call counts its slots,
+    B // 2 x K, in ``loss.slot_pairs`` while a profiler session runs."""
+    xs, head, kw = k5_inputs(dev, 2539, 10, 75, True, 7)
+    half = [x[:1269] for x in xs]
+    kw = {n: v[:1269] for n, v in kw.items()}
+    results = []
+    profiling.drain()
+    with profile(activities=[ProfilerActivity.CPU]):
+        for args in (half, [x.clone() for x in half]):
+            leaves = [x.detach().requires_grad_() for x in args]
+            loss = tl.lean_relation_logistic_loss(*leaves, head[:1269], **kw)
+            results.append((loss.detach(), torch.autograd.grad(loss,
+                                                               leaves)))
+    assert profiling.drain()["counters"] == {"loss.slot_pairs": 2 * 12690}
+    (l1, g1), (l2, g2) = results
+    assert torch.equal(l1, l2)
+    for a, b, x in zip(g1, g2, half):
+        assert a.shape == x.shape and torch.equal(a, b)
+    _assert_k5_near_plain(half, head[:1269], kw, 1.0, l1, g1)
+
+
+def test_per_slot_loss_launches_once_a_kg_per_rel_view_step(dev):
+    """One per-slot relation-view step on the card (Bloom drop keep masks)
+    launches K5 once for each KG, on the dense and on the row-sparse path,
+    and matches the CPU step (the plain version), held as
+    test_chunk_loss_launches_once_a_kg_per_rel_view_step holds K3's."""
+    E, R, d = 3000, 20, 75
+    rng = np.random.RandomState(4)
+    rng_t = lambda n, lo, hi: torch.as_tensor(np.stack(  # noqa: E731
+        [rng.randint(lo, hi, n), rng.randint(0, R, n),
+         rng.randint(lo, hi, n)], 1))
+    t1, t2 = rng_t(5000, 0, 1500), rng_t(4000, 1500, 3000)
+    tfilter = ts.build_triple_filter(torch.cat([t1, t2]).numpy(),
+                                     device=dev)
+    for sparse in ("off", "on"):
+        cfg = Config(dim=d, batch_size=2000, neg_triple_num=10,
+                     neg_scheme="per_slot", learning_rate=0.01,
+                     row_sparse_updates=sparse)
+        losses, changes, sq_grads = [], [], []
+        epoch, _, _ = tst.build_rel_view_epoch(
+            cfg, len(t1), len(t2), ((0, 1500), (1500, 3000)),
+            tfilter=tfilter)
+        assert epoch.scheme == "per_slot"
+        gen = torch.Generator(device=dev).manual_seed(1)
+        batch = [x[0] for x in epoch.draw(gen, t1.to(dev), t2.to(dev))]
+        for device in (dev, torch.device("cpu")):
+            init = tp.init_params(cfg, E, R, 2, device="cpu")
+            params = {k: init[k].to(device, copy=True)
+                      for k in ("rv_ent", "rel")}
+            opt = {k: torch.full_like(v, 0.1) for k, v in params.items()}
+            n = k5.launches
+            losses.append(float(epoch.step(
+                params, opt, *(x.to(device) for x in batch))))
+            assert k5.launches == n + (2 if device.type == "cuda" else 0)
+            changes.append({k: (params[k].cpu() - init[k]).double()
+                            for k in params})
+            sq_grads.append({k: opt[k].cpu().double() - 0.1 for k in opt})
+        assert losses[0] == pytest.approx(losses[1], rel=1e-5)
+        for k, want in sq_grads[1].items():
+            top = float(want.max())
+            assert top > 0, k
+            err = float((sq_grads[0][k] - want).abs().max())
+            assert err <= 1e-5 * top, (sparse, k, "squared gradient", err)
+            err = float((changes[0][k] - changes[1][k]).abs().max())
+            assert err <= 1e-5 * top ** 0.5 * cfg.learning_rate / 0.1 ** 0.5, \
+                (sparse, k, "change", err)
 
 def _k4_inputs(dev, B, d, seed):
     """A scorer with a non-trivial batch norm and biases, unit head and
